@@ -1,0 +1,71 @@
+"""Headless CLI: run a step chain on images without the HTTP server.
+
+Examples:
+    python -m moephoto_tpu_torch.cli image in.png out.png \
+        --steps '[{"op":"SR","model":"lite","scale":4}]'
+    python -m moephoto_tpu_torch.cli image 'shots/*.png' outdir/ --preset sr
+
+Runs on the CUDA device; set ``"device": "cpu"`` in ``.user/config.json``
+to run on the CPU on purpose.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+
+
+def loadPresetSteps(name: str, pType: str):
+    path = os.path.join(".user", f"preset_{pType}", name + ".json")
+    with open(path, encoding="utf-8") as fp:
+        return json.load(fp)["steps"]
+
+
+def runImage(src: str, dst: str, steps):
+    from moephoto_tpu_torch.pipeline.steps import genProcess
+    from moephoto_tpu_torch.runtime.context import context
+
+    context.imageMode = "RGB"
+    with open(src, "rb") as fp:
+        data = fp.read()
+    context.sharedView = memoryview(data)
+    chain = [{"op": "file"}] + [dict(s) for s in steps] + (
+        [] if steps and steps[-1].get("op") == "output" else [{"op": "output"}]
+    )
+    chain[-1]["file"] = dst
+    process, _ = genProcess(chain)
+    process(len(data), name=dst)
+    return dst
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("kind", choices=("image", "video"))
+    ap.add_argument("src", help="input file or glob")
+    ap.add_argument("dst", help="output file, or directory for globs")
+    ap.add_argument("--steps", help="step-JSON list")
+    ap.add_argument("--preset", help="preset name from .user/preset_*")
+    args = ap.parse_args(argv)
+
+    if args.kind == "video":
+        raise NotImplementedError("video is not ported yet")
+    if args.preset:
+        steps = loadPresetSteps(args.preset, args.kind)
+    elif args.steps:
+        steps = json.loads(args.steps)
+    else:
+        ap.error("one of --steps / --preset required")
+
+    srcs = sorted(glob.glob(args.src)) or [args.src]
+    if len(srcs) > 1 or os.path.isdir(args.dst):
+        os.makedirs(args.dst, exist_ok=True)
+        for s in srcs:
+            print(runImage(s, os.path.join(args.dst, os.path.basename(s)), steps))
+    else:
+        print(runImage(srcs[0], args.dst, steps))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,45 @@
+"""The port stands alone: no module of moephoto_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "moephoto_tpu")
+
+
+def _portFiles():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "moephoto_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)  # one order in every test worker
+
+
+def _forbidden(name: str) -> bool:
+    # exact names or their submodules: "moephoto_tpu_torch" is allowed
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _portFiles(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import(path):
+    with open(path, encoding="utf-8") as fp:
+        tree = ast.parse(fp.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and _forbidden(node.module or ""):
+            bad.append(node.module)
+    assert not bad, bad
+
+
+def test_port_entry_modules_load_without_jax():
+    code = ("import sys, moephoto_tpu_torch.cli, moephoto_tpu_torch.pipeline.steps; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'moephoto_tpu' or m.startswith('moephoto_tpu.')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
