@@ -134,8 +134,9 @@ class ModelExec:
         return y
 
 
-def rgbFilter(exec_: ModelExec) -> Callable:
-    """Step function with alpha passthrough: a trailing alpha channel
+def rgbFilter(exec_: Callable) -> Callable:
+    """Step function with alpha passthrough around ``exec_`` (a
+    :class:`ModelExec` or its ``applyWhole``): a trailing alpha channel
     bypasses the model and is re-attached, nearest-resized if the model
     scales (``nearest-exact`` samples pixel centres, as
     ``jax.image.resize`` does, for integer and fractional scales)."""

@@ -8,14 +8,17 @@ the layout of the JAX package; convs inside a model run NCHW views.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 StateDict = Dict[str, torch.Tensor]
+# (key, torch shape) -> bool: selects the ConvTranspose2d weights
+ConvTPredicate = Optional[Callable[[str, Tuple[int, ...]], bool]]
 
 
 def prelu(x: torch.Tensor, weight: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -71,30 +74,64 @@ def packBlockDiag(sd: StateDict, pack: int = 3) -> StateDict:
     return out
 
 
-def fromJaxParams(params: Dict[str, np.ndarray]) -> StateDict:
-    """Inverse of the JAX package's ``convertStateDict`` for plain convs
-    and linears: HWIO -> OIHW, (in, out) -> (out, in)."""
+def resizeBilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize of NHWC to (h, w): half-pixel centres, edge clamp,
+    no antialiasing when shrinking, as the JAX package's resize."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def fullFp32():
+    """fp32 convolutions and matrix products in full fp32 inside the block,
+    whatever the process-wide TF32 flags say; the flags are restored after."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def fromJaxParams(params: Dict[str, np.ndarray], convT: ConvTPredicate = None) -> StateDict:
+    """Inverse of the JAX package's ``convertStateDict(sd, convT)``.
+
+    Conv weights go HWIO -> OIHW and linears (in, out) -> (out, in).  A
+    weight that ``convT`` selects was a ConvTranspose2d: JAX stored it as
+    the equivalent direct conv (IOHW spatially flipped, then HWIO), so it
+    goes back by the transpose (2, 3, 0, 1) and a flip of both spatial
+    axes.  The predicate sees the torch shape (I, O, kH, kW) read as a
+    ConvTranspose weight, as ``convertStateDict`` shows it the torch shape.
+    """
     out: StateDict = {}
     for k, v in params.items():
         v = np.asarray(v)
         if v.ndim == 4 and k.endswith("weight"):
-            v = np.transpose(v, (3, 2, 0, 1))
+            asConvT = np.transpose(v, (2, 3, 0, 1))  # HWIO -> I O H W
+            if convT is not None and convT(k, asConvT.shape):
+                v = asConvT[:, :, ::-1, ::-1]
+            else:
+                v = np.transpose(v, (3, 2, 0, 1))
         elif v.ndim == 2 and k.endswith("weight"):
             v = np.transpose(v)
-        out[k] = torch.tensor(v)  # a copy: the source may be a read-only view
+        out[k] = torch.tensor(np.ascontiguousarray(v))  # a copy: the source may be a read-only view
     return out
 
 
-def loadTorchWeights(path: str) -> StateDict:
+def loadTorchWeights(path: str, convT: ConvTPredicate = None) -> StateDict:
     """Load a checkpoint as a torch-layout state dict on the CPU.
 
     A ``.npz`` beside a ``.pth`` (written by the JAX package's converter,
-    in its HWIO layout) is preferred, as the JAX loader prefers it.
+    in its layout) is preferred, as the JAX loader prefers it; ``convT``
+    names its ConvTranspose weights, as for the JAX loader.
     """
     npzPath = path[: -len(".pth")] + ".npz" if path.endswith(".pth") else path
     if npzPath.endswith(".npz") and os.path.exists(npzPath):
         with np.load(npzPath) as z:
-            return fromJaxParams({k: z[k] for k in z.files})
+            return fromJaxParams({k: z[k] for k in z.files}, convT)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "params" in sd and not torch.is_tensor(sd["params"]):
         sd = sd["params"]

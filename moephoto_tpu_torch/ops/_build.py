@@ -3,7 +3,8 @@
 Each kernel source under ``csrc/`` exposes a plain ``extern "C"``
 interface; it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/`` at the repository root at first use and loaded
-with ``ctypes``.  The library name carries a hash of the source and the
+with ``ctypes``; :func:`loadAll` runs one ``nvcc`` per source, all at
+once.  The library name carries a hash of the source and the
 flags, so a stale build is never loaded, and it is written through a
 temporary file and renamed, so two processes building at once never
 load a half-written file.
@@ -52,27 +53,49 @@ def libraryPath(source: str) -> str:
     return os.path.join(BUILD, f"lib{stem}_{digest[:16]}.so")
 
 
+def loadAll(sources) -> Dict[str, ctypes.CDLL]:
+    """Build every ``csrc/<source>`` that needs it, one ``nvcc`` each, all
+    started together, and return the loaded libraries by source."""
+    with _lock:
+        started = {}
+        try:
+            for source in sources:
+                if source in _libs or source in started:
+                    continue
+                so = libraryPath(source)
+                if os.path.exists(so):
+                    continue
+                os.makedirs(BUILD, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                started[source] = (proc, tmp, so, time.perf_counter())
+            failed = []
+            for source, (proc, tmp, so, t0) in started.items():
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+                    failed.append(f"nvcc failed for {source}:\n{out}\n{err}")
+                    continue
+                os.replace(tmp, so)
+                buildInfo[source] = {"seconds": time.perf_counter() - t0, "log": err + out}
+        finally:
+            for proc, *_ in started.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for source in sources:
+            if source not in _libs:
+                buildInfo.setdefault(source, {"seconds": 0.0, "log": ""})
+                _libs[source] = ctypes.CDLL(libraryPath(source))
+        return {source: _libs[source] for source in sources}
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and return the loaded library."""
-    with _lock:
-        if source in _libs:
-            return _libs[source]
-        so = libraryPath(source)
-        info = {"seconds": 0.0, "log": ""}
-        if not os.path.exists(so):
-            os.makedirs(BUILD, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, so)
-            info = {"seconds": time.perf_counter() - t0, "log": proc.stderr + proc.stdout}
-        buildInfo[source] = info
-        _libs[source] = ctypes.CDLL(so)
-        return _libs[source]
+    return loadAll([source])[source]

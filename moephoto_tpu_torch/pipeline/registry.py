@@ -2,7 +2,9 @@
 
 Same model keys and checkpoint file layout as the JAX package's
 registry; each entry resolves to a :class:`ModelExec` with a static
-:class:`TileSpec`.  Ported so far: the MoeNet_lite2 SR entries.
+:class:`TileSpec`.  Ported so far: the MoeNet_lite2 SR entries, and of the
+dehaze registry AOD (``dehaze``), ``sun`` and the three AiLUT entries;
+the other dehaze keys raise ``NotImplementedError``.
 
 The lite entries run unpacked (``channelSplit``, no plane packing).
 Packing exists in the JAX package to fill the TPU's 128-lane matrix unit
@@ -12,6 +14,7 @@ double the trunk's FLOPs.
 
 from __future__ import annotations
 
+import importlib
 import logging
 import os
 from dataclasses import replace
@@ -48,16 +51,27 @@ def modelPath(rel: str) -> str:
     return candidates[0]
 
 
+PORTED_FAMILIES = ("sr", "restore", "demoire", "ailut")  # modules of moephoto_tpu_torch.models
+
+
 def _lazyImport(family: str):
-    if family == "sr":
-        from moephoto_tpu_torch.models import sr
-
-        return sr
-    raise KeyError(f"model family {family!r} is not ported yet")
+    if family not in PORTED_FAMILIES:
+        raise KeyError(f"model family {family!r} is not ported yet")
+    return importlib.import_module(f"moephoto_tpu_torch.models.{family}")
 
 
-def _entry(family, fn, path, spec, channelSplit=False, outC=None):
-    return dict(family=family, fn=fn, path=path, spec=spec, channelSplit=channelSplit, outC=outC)
+def _entry(family, fn, path, spec, channelSplit=False, outC=None, prepare=None,
+           convT=None, fp32=False, noTile=False):
+    # prepare: map on the full image before the model; convT: predicate
+    # naming ConvTranspose weights in a JAX-layout .npz; fp32: run in fp32
+    # whatever config.bf16 says; noTile: run whole (ModelExec.applyWhole)
+    return dict(family=family, fn=fn, path=path, spec=spec, channelSplit=channelSplit,
+                outC=outC, prepare=prepare, convT=convT, fp32=fp32, noTile=noTile)
+
+
+def _normalize05(x):
+    """Normalize(mean=.5, std=.5) of the AOD dehaze entry."""
+    return (x - 0.5) / 0.5
 
 
 # --- SR registry ----------------------------------------------------------
@@ -68,6 +82,24 @@ SR_REGISTRY = {
     "lite4": _entry("sr", "moeNetLite2x4", "model/lite/model_4.pth", _SPEC_LITE(4), channelSplit=True),
     "lite8": _entry("sr", "moeNetLite2x8", "model/lite/model_8.pth", _SPEC_LITE(8), channelSplit=True),
 }
+
+
+# --- dehaze / deblur / derain / demoire / retouch -------------------------
+_sunConvT = lambda k, s: s[2] == 4
+DEHAZE_REGISTRY = {
+    "dehaze": _entry("restore", "aodNet", "model/dehaze/AOD_net_epoch_relu_10.pth",
+                     TileSpec(256, 8, 8, 1.0, 8), prepare=_normalize05),
+    "sun": _entry("demoire", "sunDemoire", "model/demoire/sun_epoch_200.pth",
+                  TileSpec(256, 16, 32, 1.0, 4), convT=_sunConvT),
+    "AiLUT_sRGB_3": _entry("ailut", "ailutTPAMI", "model/AiLUT/AiLUT-FiveK-sRGB.pth",
+                           TileSpec(256, 8, 8, 1.0, 1), fp32=True, noTile=True),
+    "AiLUT_XYZ_3": _entry("ailut", "ailutTPAMI", "model/AiLUT/AiLUT-FiveK-XYZ.pth",
+                          TileSpec(256, 8, 8, 1.0, 1), fp32=True, noTile=True),
+    "AiLUT_sRGB_5": _entry("ailut", "ailutRes18", "model/AiLUT/AiLUT-PPR10KA-sRGB.pth",
+                           TileSpec(256, 8, 8, 1.0, 1), fp32=True, noTile=True),
+}
+DEHAZE_NOT_PORTED = {"moire_obj", "moire_screen_gan", "MPRNet_deblurring", "MPRNet_deraining",
+                     "NAFNet_deblur_32", "NAFNet_deblur_64", "NAFNet_deblur_JPEG_64"}
 
 
 def _applyConfigSpec(entry: dict, kind: str) -> TileSpec:
@@ -85,12 +117,13 @@ def _applyConfigSpec(entry: dict, kind: str) -> TileSpec:
     return spec
 
 
-def buildExec(entry: dict, ensemble: int = 0, kind: str = "") -> ModelExec:
-    """Instantiate (and cache) a ModelExec from a registry entry."""
+def buildExec(entry: dict, strength: float = 1.0, ensemble: int = 0, kind: str = "") -> ModelExec:
+    """Instantiate (and cache) a ModelExec from a registry entry; an
+    ``fp32`` entry runs in fp32 whatever ``config.bf16`` says."""
     device = config.torchDevice()
-    dtype = config.dtype()
+    dtype = torch.float32 if entry["fp32"] else config.dtype()
     key = entry["path"]
-    fullKey = f"{key}|{ensemble}|{device}|{dtype}"
+    fullKey = f"{key}|{strength}|{ensemble}|{device}|{dtype}"
     if fullKey in _modelCache:
         return _modelCache[fullKey]
     pKey = f"{key}|{device}|{dtype}"
@@ -98,7 +131,7 @@ def buildExec(entry: dict, ensemble: int = 0, kind: str = "") -> ModelExec:
         path = modelPath(entry["path"])
         log.info("loading model %s", path)
         model = getattr(_lazyImport(entry["family"]), entry["fn"])()
-        model.load_state_dict(M.loadTorchWeights(path), strict=True)
+        model.load_state_dict(M.loadTorchWeights(path, entry["convT"]), strict=True)
         model = model.to(device=device, dtype=dtype).eval()
         if device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
@@ -108,11 +141,14 @@ def buildExec(entry: dict, ensemble: int = 0, kind: str = "") -> ModelExec:
         _applyConfigSpec(entry, kind),
         channelSplit=entry["channelSplit"],
         outC=entry["outC"],
+        prepare=entry["prepare"],
+        strength=strength,
         ensemble=ensemble,
         dtype=dtype,
         name=key,
         device=device,
     )
+    ex.noTile = entry["noTile"]
     _modelCache[fullKey] = ex
     return ex
 
@@ -125,3 +161,11 @@ def getSR(opt: dict) -> Optional[ModelExec]:
     ens = opt.get("ensemble", config.ensembleSR)
     ens = ens if 0 <= int(ens) <= 7 else config.ensembleSR
     return buildExec(SR_REGISTRY[name], ensemble=int(ens), kind="sr")
+
+
+def getDehaze(opt: dict) -> ModelExec:
+    """dehaze/deblur/derain/demoire/retouch step options -> ModelExec."""
+    model = opt.get("model", "dehaze")
+    if model in DEHAZE_NOT_PORTED:
+        raise NotImplementedError(f"dehaze model {model!r} is not ported yet")
+    return buildExec(DEHAZE_REGISTRY[model], strength=float(opt.get("strength", 1.0)))

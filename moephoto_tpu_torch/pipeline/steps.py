@@ -2,7 +2,7 @@
 
 A JSON list of ``{'op': ...}`` dicts compiles to a composed function plus
 a progress-Node list, as in the JAX package.  Ported ops: ``file``,
-``SR`` and ``output`` (image branch); the others raise
+``SR``, ``dehaze`` and ``output`` (image branch); the others raise
 ``NotImplementedError``.
 
 In-pipeline image representation: torch float32 HWC in [0, 1] on the
@@ -24,7 +24,7 @@ from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
-NOT_PORTED = {"buffer", "DN", "dehaze", "resize", "slomo", "VSR", "demob"}
+NOT_PORTED = {"buffer", "DN", "resize", "slomo", "VSR", "demob"}
 apply_ = lambda v, f: f(v)
 identity = lambda x, *_, **__: x
 NonNullWrap = lambda f: lambda x: f(x) if x is not None else None
@@ -43,6 +43,9 @@ def appendFuncs(f, node, funcs, wrap=True):
     return node
 
 
+BGR2RGB = lambda im: im.flip(-1)
+
+
 def toDevice(im) -> torch.Tensor:
     """Host HWC uint/float -> float32 HWC in [0, 1] on the compute device."""
     arr = np.asarray(im)
@@ -56,9 +59,11 @@ def toDevice(im) -> torch.Tensor:
 
 
 def execFilter(exec_: ModelExec) -> Callable:
-    if getattr(exec_, "noTile", False):
-        return exec_.applyWhole
-    return rgbFilter(exec_)
+    """The step function of a model: tiled, or whole for a ``noTile``
+    model, with the alpha channel passed around the model either way (the
+    JAX package hands a whole-image model all four channels, and AiLUT's
+    backbone then refuses an RGBA image)."""
+    return rgbFilter(exec_.applyWhole if getattr(exec_, "noTile", False) else exec_)
 
 
 # --------------------------------------------------------------------------
@@ -71,6 +76,12 @@ def procInput(source, bitDepth, fs, out):
     node = Node({"op": "toTorch", "bits": bitDepth})
     fs.append(NonNullWrap(node.bindFunc(toDevice)))
     return fs, [node], out
+
+
+def convertChannel(out):
+    out["channel"] = 0
+    fs = []
+    return fs, [appendFuncs(BGR2RGB, Node(dict(op="Channel")), fs)]
 
 
 def procSR(opt, out, *_):
@@ -89,6 +100,16 @@ def procSR(opt, out, *_):
         execFilter(exec_), newNode(opt, dict(op="SR", model=mode, scale=scale), load * es), fs
     )
     return fs, [node], out
+
+
+def procDehaze(opt, out, *_):
+    load = out["load"]
+    exec_ = opt["opt"]
+    model = opt.get("model", "dehaze")
+    fs, ns = convertChannel(out) if out["channel"] else ([], [])
+    node = newNode(opt, dict(op=model), load)
+    ns.append(appendFuncs(execFilter(exec_), node, fs))
+    return fs, ns, out
 
 
 def toFloatHost(im) -> np.ndarray:
@@ -118,10 +139,14 @@ procs: Dict[str, Callable] = dict(
         )
     ),
     SR=procSR,
+    dehaze=procDehaze,
     output=procOutput,
 )
 
-stepOpts = dict(SR={"toInt": ["scale", "ensemble"], "getOpt": registry.getSR})
+stepOpts = dict(
+    SR={"toInt": ["scale", "ensemble"], "getOpt": registry.getSR},
+    dehaze={"toFloat": ["strength"], "getOpt": registry.getDehaze},
+)
 
 
 def genProcess(steps: List[dict], root: bool = True, outType: Optional[dict] = None):

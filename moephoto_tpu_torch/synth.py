@@ -1,10 +1,16 @@
-"""Seeded random MoeNet_lite2 weights in torch layout.
+"""Seeded random weights in torch layout.
 
 The real checkpoints are not part of the repository, so parity runs and
-the GPU smoke test use random weights made from a seed.  The draws follow
-the JAX package's random lite parameters (``__graft_entry__._lite2Params``)
-in the same order, so the same seed gives the same weights in both
-packages.
+the GPU smoke test use random weights made from a seed.  The lite draws
+follow the JAX package's random lite parameters
+(``__graft_entry__._lite2Params``) in the same order, so the same seed
+gives the same weights in both packages.  The sun, AOD and AiLUT draws
+are this module's own; the tests hand one dict to both packages.
+
+Conv weights are drawn at 1/sqrt(fan-in), where a ConvTranspose's fan-in
+is the taps one output pixel sees (cin * k * k / stride**2); biases,
+PReLU slopes and norm parameters get small seeded noise around their
+defaults, so a dropped or misplaced parameter shows in a comparison.
 """
 
 from __future__ import annotations
@@ -44,3 +50,121 @@ def synthLite2Params(upscale: int = 2, seed: int = 0) -> Dict[str, torch.Tensor]
     conv("convt_R1", 1, 1, 48, 1)
     conv("convt_I1", 1, 1, 48, 1)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in p.items()}
+
+
+def _drawer(rng: np.random.RandomState, p: Dict[str, np.ndarray]):
+    def conv(name, cin, cout, k, bias=True, transpose=False, stride=1):
+        fanIn = cin * k * k // (stride * stride if transpose else 1)
+        shape = (cin, cout, k, k) if transpose else (cout, cin, k, k)
+        p[name + ".weight"] = (rng.randn(*shape) / np.sqrt(fanIn)).astype(np.float32)
+        if bias:
+            p[name + ".bias"] = (0.1 * rng.randn(cout)).astype(np.float32)
+
+    def prelu(name):
+        p[name + ".weight"] = (0.25 + 0.05 * rng.randn(1)).astype(np.float32)
+
+    def norm(name, c, running=False):
+        p[name + ".weight"] = (1.0 + 0.1 * rng.randn(c)).astype(np.float32)
+        p[name + ".bias"] = (0.1 * rng.randn(c)).astype(np.float32)
+        if running:
+            p[name + ".running_mean"] = (0.1 * rng.randn(c)).astype(np.float32)
+            p[name + ".running_var"] = (1.0 + 0.2 * rng.rand(c)).astype(np.float32)
+            p[name + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+    return conv, prelu, norm
+
+
+def _torchDict(p: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in p.items()}
+
+
+def synthSunParams(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """State dict of a random sun_demoire (``models/demoire.SunDemoire``)."""
+    from moephoto_tpu_torch.models.demoire import SUN_DOWNS
+
+    rng = np.random.RandomState(seed)
+    p: Dict[str, np.ndarray] = {}
+    conv, prelu, _ = _drawer(rng, p)
+    for i, (cin, cm, cout) in enumerate(SUN_DOWNS):
+        conv(f"downs.{i}.down", cin, cm, 3)
+        prelu(f"downs.{i}.relu")
+        conv(f"downs.{i}.convt_R1", cm, cout, 3)
+        if i == 0:
+            conv("branches.0.0", cout, 3, 3)
+            prelu("branches.0.1")
+            continue
+        for j in range(i):
+            conv(f"branches.{i}.{2 * j}", cout, cout, 4, transpose=True, stride=2)
+            prelu(f"branches.{i}.{2 * j + 1}")
+        conv(f"branches.{i}.{2 * i}", cout, 3, 3)
+    return _torchDict(p)
+
+
+def synthAODParams(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """State dict of a random AOD-Net (``models/restore.AODNet``):
+    3-channel convs of kernel 1/3/5/7/3 on 3/3/6/6/12 input channels."""
+    rng = np.random.RandomState(seed)
+    p: Dict[str, np.ndarray] = {}
+    conv, _, _ = _drawer(rng, p)
+    for i, (cin, k) in enumerate(((3, 1), (3, 3), (6, 5), (6, 7), (12, 3))):
+        conv(f"conv{i + 1}", cin, 3, k)
+    return _torchDict(p)
+
+
+def identityLut(D: int) -> np.ndarray:
+    """(3, D, D, D) red-minor LUT that maps a uniform grid to itself."""
+    g = np.linspace(0.0, 1.0, D, dtype=np.float32)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")
+    return np.stack([r, gg, b]).astype(np.float32)
+
+
+def synthAiLUTParams(backbone: str = "tpami", nRanks: int = 3, seed: int = 0,
+                     nVertices: int = 33) -> Dict[str, torch.Tensor]:
+    """State dict of a random AiLUT (``models/ailut.AiLUT``).
+
+    Widths are the published ones (AdaInt, CVPR 2022): the TPAMI backbone
+    16/32/64/128/128 with 512 codes, ResNet-18 with 512.  The first LUT
+    basis is the identity plus noise and the rank weights lean on it, so
+    the LUT stays near the identity without being it; the interval logits
+    carry seeded noise, so the vertices are not uniform."""
+    from moephoto_tpu_torch.models.ailut import TPAMI_WIDTHS
+
+    rng = np.random.RandomState(seed)
+    p: Dict[str, np.ndarray] = {}
+    conv, _, norm = _drawer(rng, p)
+    if backbone == "tpami":
+        cin = 3
+        for i, cout in enumerate(TPAMI_WIDTHS):
+            conv(f"backbone.{i}.0", cin, cout, 3)
+            if i < 4:
+                norm(f"backbone.{i}.2", cout)
+            cin = cout
+        nFeats = TPAMI_WIDTHS[-1] * 4
+    elif backbone == "res18":
+        conv("backbone.conv1", 3, 64, 7, bias=False)
+        norm("backbone.bn1", 64, running=True)
+        cin = 64
+        for li, (cout, stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2))):
+            for bi in range(2):
+                pre = f"backbone.layer{li + 1}.{bi}"
+                conv(pre + ".conv1", cin, cout, 3, bias=False)
+                norm(pre + ".bn1", cout, running=True)
+                conv(pre + ".conv2", cout, cout, 3, bias=False)
+                norm(pre + ".bn2", cout, running=True)
+                if bi == 0 and (stride != 1 or cin != cout):
+                    conv(pre + ".downsample.0", cin, cout, 1, bias=False)
+                    norm(pre + ".downsample.1", cout, running=True)
+                cin = cout
+        nFeats = 512
+    else:
+        raise ValueError(f"AiLUT backbone {backbone!r} not in ('tpami', 'res18')")
+    D = nVertices
+    lin = lambda nOut, nIn, scale: (scale * rng.randn(nOut, nIn) / np.sqrt(nIn)).astype(np.float32)
+    p["lut_generator.weights_generator.weight"] = lin(nRanks, nFeats, 0.05)
+    p["lut_generator.weights_generator.bias"] = np.eye(1, nRanks, dtype=np.float32)[0]
+    basis = 0.05 * rng.randn(3 * D**3, nRanks)
+    basis[:, 0] += identityLut(D).reshape(-1)
+    p["lut_generator.basis_luts_bank.weight"] = basis.astype(np.float32)
+    p["adaint.intervals_generator.weight"] = lin(3 * (D - 1), nFeats, 0.05)
+    p["adaint.intervals_generator.bias"] = (0.3 * rng.randn(3 * (D - 1))).astype(np.float32)
+    return _torchDict(p)
