@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
               card at the main paths' shapes: fusedUpHeads in fp32 (TF32
               off) and bf16; ailutTransform at 1080p in range and out of
               range, with a batch of 2 and a ragged pixel count, and on
-              values that equal vertices
+              values that equal vertices; warp at IFRNet-M's four 1080p
+              warp shapes, a ragged shape, B = 2 and a stride-0 batch,
+              both padding modes, fp32 and bf16, flows up to 40 px, 1e6
+              and NaN, and backWarp against its plain fold
   4. main     runs the CLI's image SR path (MoeNet_lite2 x4, bf16) on a
               seeded 1920x1080 PNG with seeded random weights, checks the
               7680x4320 output and the kernel launch count, and holds a
@@ -28,6 +31,17 @@ Phases, each printing one JSON line:
               kernel's time beside its plain version and its bound, and
               a profiler breakdown of one image by kernel name; then the
               same for each retouch step and the chain
+  7. video    runs the CLI's video path (fake ffmpeg decode -> buffer ->
+              IFRNet-M slomo x2 in bf16 -> output -> fake ffmpeg encode)
+              on 9 seeded-pattern 1920x1080 frames with seeded random
+              weights, checks 17 encoded frames and 64 warp launches, and
+              prints the largest |flow| each warp shape saw; holds the
+              slomo stream on 5 frames of 128x128 in fp32 on the card
+              against the CPU; then times the slomo stream on
+              device-resident 1080p frames (output Mpx/s, a profiled
+              chunk), and the warp at each of its four shapes on the
+              inputs the CLI run gave it, beside its bound, its plain
+              version and F.grid_sample (and on incoherent 40 px flows)
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; with no CUDA device it
@@ -76,6 +90,19 @@ CHAIN_TOL = 2e-3
 # TF32 (10-bit mantissa) would give ~1e-3
 GEN_TOL = 1e-4
 LUT_FLOP_PER_PX = 79  # ailut.cu: 3 x 5 for the fractions, 3 + 16 for weights, 3 x 15 for the sums
+SLOMO = [{"op": "slomo", "model": "IFRNet M", "sf": 2}]
+VIDEO_FRAMES = 9
+# warp vs its plain version: the kernel rounds each fp32 operation where
+# the plain version does; bf16 allows one ulp of |plain| and 2^-8
+WARP_FP32_TOL, WARP_BF16_REL, WARP_BF16_ABS = 1e-5, 2.0**-7, 2.0**-8
+# IFRNet's warps per 1080p pair (sf 2, k = 1): (H, W, C, image dtype)
+WARP_SHAPES = ((136, 240, 72, torch.bfloat16), (272, 480, 48, torch.bfloat16),
+               (544, 960, 32, torch.bfloat16), (1088, 1920, 3, torch.float32))
+WARP_FLOP_PER_VALUE, WARP_FLOP_PER_PX = 9, 12  # warp.cu: the blend per channel; coordinates and weights
+# slomo on the card vs the CPU, fp32, outputs in [0, 1]: cuDNN's conv
+# algorithms differ from the CPU's by ~1e-5 per layer, and the warps
+# carry a flow difference times the image gradient through four levels
+SLOMO_TOL = 2e-3
 
 
 def emit(**kw):
@@ -252,15 +279,18 @@ def timing(seed, gpu):
 def resetCounts():
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
     from moephoto_tpu_torch.ops.lut import ailutTransform
+    from moephoto_tpu_torch.ops.warp import warp
 
-    fusedUpHeads.launches = ailutTransform.launches = 0
+    fusedUpHeads.launches = ailutTransform.launches = warp.launches = 0
 
 
 def readCounts():
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
     from moephoto_tpu_torch.ops.lut import ailutTransform
+    from moephoto_tpu_torch.ops.warp import warp
 
-    return {"fusedUpHeads": fusedUpHeads.launches, "ailutTransform": ailutTransform.launches}
+    return {"fusedUpHeads": fusedUpHeads.launches, "ailutTransform": ailutTransform.launches,
+            "warp": warp.launches}
 
 
 def lutBound(img, lut, vertices):
@@ -511,6 +541,237 @@ def timingRetouch(seed, gpu, lutInput, lutModel):
     return dict(ms=kMs, plain_ms=plainMs, bound_ms=bound, bound_by=boundBy)
 
 
+def isWarpKernel(name: str) -> bool:
+    return "::warpVecKernel<" in name or "::warpPixelKernel<" in name
+
+
+def warpCase(seed, B, h, w, c, dtype, flowDtype, scale):
+    """Seeded image in [0, 1) and flow uniform in [-scale, scale], on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand((B, h, w, c), generator=g, device="cuda").to(dtype)
+    flow = ((torch.rand((B, h, w, 2), generator=g, device="cuda") * 2 - 1) * scale).to(flowDtype)
+    return img, flow
+
+
+def warpBound(img, flow):
+    """Least time for one warp: the image read once (a stride-0 batch is
+    one image), the flow read once, the output written once, against the
+    fp32 CUDA-core rate for its operations."""
+    B, h, w, c = img.shape
+    images = 1 if img.stride(0) == 0 else B
+    nbytes = (images + B) * h * w * c * img.element_size() + flow.numel() * flow.element_size()
+    tBytes = nbytes / PEAK_BYTES * 1e3
+    tOps = B * h * w * (WARP_FLOP_PER_VALUE * c + WARP_FLOP_PER_PX) / PEAK_FP32_FLOPS * 1e3
+    return max(tOps, tBytes), ("operations" if tOps > tBytes else "bytes")
+
+
+def checkWarp(seed):
+    """warp against warpPlain on the card: NaN exactly where the plain
+    version is NaN, every other value within the tolerance."""
+    from moephoto_tpu_torch.ops.warp import backWarp, backWarpFlow, warp, warpPlain
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {f"path_{h}x{w}x{c}_{str(d)[6:]}": (1, h, w, c, d, bf, 40.0) for h, w, c, d in WARP_SHAPES}
+    cases.update({
+        "ragged_67x129x5_float32": (1, 67, 129, 5, f32, f32, 40.0),
+        "ragged_37x1001x36_bfloat16": (1, 37, 1001, 36, bf, f32, 40.0),
+        "B2_272x480x48_bfloat16": (2, 272, 480, 48, bf, bf, 40.0),
+        "B2_1088x1920x3_float32": (2, 1088, 1920, 3, f32, f32, 40.0),
+        "huge_136x240x72_float32": (1, 136, 240, 72, f32, f32, 1e6),
+    })
+    errs = {}
+
+    def hold(key, got, want):
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"warp NaNs differ from its plain version: {key}")
+        fp32 = want.dtype == torch.float32
+        got, want = got.float()[~nan], want.float()[~nan]
+        diff = (got - want).abs()
+        tol = WARP_FP32_TOL if fp32 else WARP_BF16_REL * want.abs() + WARP_BF16_ABS
+        errs[key] = float(diff.max()) if diff.numel() else 0.0
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"warp disagrees with its plain version: {key} max {errs[key]}")
+
+    for i, (name, (B, h, w, c, dtype, flowDtype, scale)) in enumerate(cases.items()):
+        img, flow = warpCase(seed + 20 + i, B, h, w, c, dtype, flowDtype, scale)
+        if name.startswith("huge"):
+            flow[0, ::7, ::5] = float("nan")
+        for mode in ("border", "zeros"):
+            views = {"": img} if B == 1 else {"": img, "_expanded": img[:1].expand_as(img)}
+            for tag, x in views.items():
+                hold(f"{name}{tag}_{mode}", warp(x, flow, mode), warpPlain(x, flow, mode))
+        del img, flow
+    img, flow = warpCase(seed + 40, 1, 544, 960, 32, bf, bf, 40.0)
+    hold("backWarp_544x960x32_bfloat16", backWarp(img, flow), warpPlain(img, backWarpFlow(flow)))
+    torch.cuda.synchronize()
+    emit(phase="kernels", kernel="warp", fp32_tol=WARP_FP32_TOL,
+         bf16_tol=f"{WARP_BF16_REL}*|plain|+{WARP_BF16_ABS}", max_abs_err=errs)
+    return max(errs.values())
+
+
+def shapeKey(img) -> str:
+    return "x".join(str(n) for n in img.shape[1:]) + "_" + str(img.dtype)[6:]
+
+
+class PathWarps:
+    """While installed (it wraps ``ifrnet.warpExact``, which IFRNet's
+    warps call): the largest |flow| each warp shape sees, whether any flow
+    is NaN, and the first (image, flow) of each shape, kept to time the
+    kernel on the inputs the path gave it."""
+
+    def __enter__(self):
+        from moephoto_tpu_torch.models import ifrnet
+
+        self.module, self.orig = ifrnet, ifrnet.warpExact
+        self.maxFlow, self.nan, self.inputs = {}, {}, {}
+
+        def record(img, flow):
+            key = shapeKey(img)
+            a = flow.float().abs()
+            self.maxFlow[key] = max(self.maxFlow.get(key, 0.0), float(a.nan_to_num(0.0).max()))
+            self.nan[key] = self.nan.get(key, False) or bool(torch.isnan(a).any())
+            if key not in self.inputs:
+                self.inputs[key] = (img.clone(), flow.clone())
+            return self.orig(img, flow)
+
+        ifrnet.warpExact = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.warpExact = self.orig
+        return False
+
+
+def fakeFfmpeg(work):
+    """An executable that runs the repository's fake ffmpeg."""
+    path = os.path.join(work, "ffmpeg")
+    with open(path, "w") as fp:
+        fp.write(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.join(ROOT, "tools", "fakeffmpeg.py")}" "$@"\n')
+    os.chmod(path, 0o755)
+    return path
+
+
+def runVideo(work):
+    """The CLI's video path, as a user calls it, on the card (IFRNet in
+    bf16): 9 decoded 1080p frames -> 17 encoded."""
+    from moephoto_tpu_torch import cli
+
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = f"{W}x{H}", str(VIDEO_FRAMES)
+    dst = os.path.join(work, "slomo.mkv")
+    with PathWarps() as warps:
+        resetCounts()
+        t0 = time.perf_counter()
+        path, frames = cli.runVideo(os.path.join(work, "in.mkv"), dst, SLOMO)
+        seconds = time.perf_counter() - t0
+        launches = readCounts()
+    with open(path) as fp:
+        meta = json.load(fp)
+    want = (2 * VIDEO_FRAMES - 1) * W * H * 6
+    if frames != VIDEO_FRAMES or meta != {"bytes": want, "s": f"{W}x{H}"}:
+        raise AssertionError(f"video: read {frames} frames, encoder got {meta}, want {want} bytes of {W}x{H}")
+    if launches["warp"] != 8 * (VIDEO_FRAMES - 1):
+        raise AssertionError(f"video launched {launches}, want {8 * (VIDEO_FRAMES - 1)} warps")
+    emit(phase="video", steps=SLOMO, input=[VIDEO_FRAMES, H, W, 3], frames_read=frames,
+         encoded_frames=meta["bytes"] // (W * H * 6), geometry=meta["s"], seconds=seconds, launches=launches,
+         max_abs_flow_by_warp_shape=warps.maxFlow, nan_flow_by_warp_shape=warps.nan)
+    return launches["warp"], warps.inputs
+
+
+def slomoStream(opt, collect):
+    from moephoto_tpu_torch.models.ifrnet import doSlomo
+    from moephoto_tpu_torch.progress import Node
+
+    return doSlomo(lambda x: None if x is None else [collect(x)], Node({"op": "smoke"}), opt)
+
+
+def checkVideoCrop(seed):
+    """The slomo stream on 5 frames of 128x128, IFRNet-M in fp32, on the
+    card (kernel path) against the CPU (plain path), same weights."""
+    from moephoto_tpu_torch.models.ifrnet import getOpt
+
+    frames = np.random.RandomState(seed + 5).rand(5, 128, 128, 3).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        opt = getOpt(dict(SLOMO[0]), torch.device(dev), torch.float32)
+        f = slomoStream(opt, lambda x: x.cpu())
+        got = []
+        resetCounts()
+        for fr in frames:
+            got += f(torch.from_numpy(fr).to(dev))
+        got += f(None)
+        outs[dev] = torch.stack(got)
+        launches = readCounts()["warp"]
+        if (dev == "cuda") != (launches > 0):
+            raise AssertionError(f"video crop on {dev}: {launches} warp launches")
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    if not (outs["cuda"].shape == (9, 128, 128, 3) and err <= SLOMO_TOL and torch.isfinite(outs["cuda"]).all()):
+        raise AssertionError(f"video crop: shape {tuple(outs['cuda'].shape)}, card vs CPU {err}")
+    emit(phase="video_crop", shape=list(outs["cuda"].shape), max_abs_err=err, tol=SLOMO_TOL)
+
+
+def timingSlomo(seed, gpu, pathInputs):
+    """Output Mpx/s of the slomo stream on device-resident 1080p frames
+    (bf16), a profiled chunk, and the warp at each path shape on the
+    inputs the CLI run gave it, beside its bound, its plain version and
+    F.grid_sample; and the kernel on incoherent flows (each pixel's flow
+    uniform in [-40, 40] px, so neighbouring threads gather from unrelated
+    lines) at the same shapes."""
+    import torch.nn.functional as F
+
+    from moephoto_tpu_torch.models.ifrnet import getOpt
+    from moephoto_tpu_torch.ops.warp import warp, warpPlain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = [torch.rand((H, W, 3), generator=g, device="cuda") for _ in range(4)]
+    f = slomoStream(getOpt(dict(SLOMO[0])), lambda x: x.mean())
+    feed = lambda n: sum(len(f(frames[i % 4])) for i in range(n))
+    feed(16)  # two chunks of warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    outFrames = feed(16)
+    end.record()
+    torch.cuda.synchronize()
+    wallS = time.perf_counter() - t0
+    eventS = start.elapsed_time(end) / 1e3
+    resetCounts()
+    wallMs, rows = profileOnce(lambda: feed(8))  # one chunk: 8 pairs
+    launches = readCounts()["warp"]
+    deviceMs = sum(t for _, t in rows)
+    warpMs = sum(t for k, t in rows if isWarpKernel(k))
+    emit(phase="slomo_timing", gpu=gpu, output_frames=outFrames, seconds_events=eventS, seconds_wall=wallS,
+         output_mpx_per_s=outFrames * H * W / 1e6 / eventS, profiled_chunk_pairs=8, profiled_warp_launches=launches,
+         profiled_wall_ms=wallMs, profiled_device_ms=deviceMs, device_ms_per_interpolated_frame=deviceMs / 8,
+         warp_device_ms_per_interpolated_frame=warpMs / 8,
+         device_idle_share=(1 - deviceMs / wallMs) if wallMs else None,
+         top_kernels=[{"name": k[:80], "ms": t} for k, t in rows[:16]])
+
+    kernelMs = lambda img, flow: sum(
+        t for k, t in profileOnce(lambda: [warp(img, flow) for _ in range(ITERS)])[1] if isWarpKernel(k)) / ITERS
+    shapes = {}
+    for i, (h, w, c, dtype) in enumerate(WARP_SHAPES):
+        key = f"{h}x{w}x{c}_{str(dtype)[6:]}"
+        img, flow = pathInputs[key]
+        wrapperMs = cudaTimeMs(lambda: warp(img, flow), ITERS)
+        plainMs = cudaTimeMs(lambda: warpPlain(img, flow), 3)
+        ys, xs = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"), indexing="ij")
+        grid = torch.stack([2 * (xs + flow[0, ..., 0].float()) / (w - 1) - 1,
+                            2 * (ys + flow[0, ..., 1].float()) / (h - 1) - 1], -1)[None].to(dtype)
+        nchw = img.permute(0, 3, 1, 2)
+        libMs = cudaTimeMs(lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                                                 align_corners=True), ITERS)
+        bound, boundBy = warpBound(img, flow)
+        rImg, rFlow = warpCase(seed + 60 + i, 1, h, w, c, dtype, torch.bfloat16, 40.0)
+        shapes[key] = dict(ms=kernelMs(img, flow), wrapper_ms=wrapperMs, plain_ms=plainMs, library_ms=libMs,
+                           bound_ms=bound, bound_by=boundBy, path_max_abs_flow=float(flow.float().abs().max()),
+                           ms_incoherent_flow_40px=kernelMs(rImg, rFlow))
+        del grid, nchw, rImg, rFlow
+    emit(phase="kernel_timing", gpu=gpu, kernel="warp", flow_dtype="bfloat16", by_shape=shapes)
+    return shapes["544x960x32_bfloat16"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -520,8 +781,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from moephoto_tpu_torch.config import config
-    from moephoto_tpu_torch.ops import _build, fusedup, lut
-    from moephoto_tpu_torch.synth import synthAiLUTParams, synthAODParams, synthLite2Params, synthSunParams
+    from moephoto_tpu_torch.ops import _build, fusedup, lut, warp
+    from moephoto_tpu_torch.synth import (synthAiLUTParams, synthAODParams, synthIFRNetParams, synthLite2Params,
+                                          synthSunParams)
 
     # fp32 comparisons run in true fp32: cuDNN would run fp32 convs in TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -533,7 +795,7 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    sources = (fusedup.SOURCE, lut.SOURCE)
+    sources = (fusedup.SOURCE, lut.SOURCE, warp.SOURCE)
     _build.loadAll(sources)
     emit(phase="build", seconds=time.perf_counter() - t0, libraries={src: {
         "nvcc_seconds": _build.buildInfo[src]["seconds"],
@@ -543,16 +805,18 @@ def main(argv=None) -> int:
 
     errs = checkKernel(args.seed)
     lutErr = checkLut(args.seed)
+    warpErr = checkWarp(args.seed)
 
     config.device, config.bf16 = "cuda", True
     with tempfile.TemporaryDirectory() as work:
         for sub, name, sd in (("lite", "model_4.pth", synthLite2Params(UPSCALE, args.seed)),
                               ("demoire", "sun_epoch_200.pth", synthSunParams(args.seed)),
                               ("dehaze", "AOD_net_epoch_relu_10.pth", synthAODParams(args.seed)),
-                              ("AiLUT", "AiLUT-FiveK-sRGB.pth", synthAiLUTParams("tpami", 3, args.seed))):
+                              ("AiLUT", "AiLUT-FiveK-sRGB.pth", synthAiLUTParams("tpami", 3, args.seed)),
+                              ("IFRNet", "IFRNet_GoPro.pth", synthIFRNetParams("M", args.seed))):
             os.makedirs(os.path.join(work, sub), exist_ok=True)
             torch.save(sd, os.path.join(work, sub, name))
-        config.modelDir = work
+        config.modelDir, config.opsPath, config.ffmpegPath = work, os.path.join(work, "ops.json"), fakeFfmpeg(work)
         launches = runMainPath(args.seed, work)
         checkCrop(args.seed)
         lutLaunches, lutInput, lutModel = runRetouch(args.seed, work)
@@ -560,6 +824,9 @@ def main(argv=None) -> int:
         checkGenerate(args.seed)
         kt = timing(args.seed, smi)
         lt = timingRetouch(args.seed, smi, lutInput, lutModel)
+        warpLaunches, pathInputs = runVideo(work)
+        checkVideoCrop(args.seed)
+        wt = timingSlomo(args.seed, smi, pathInputs)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
@@ -571,6 +838,11 @@ def main(argv=None) -> int:
         "replaces": "moephoto_tpu/ops/lutkernel.py:185", "launches": lutLaunches,
         "max_abs_err": lutErr, "ms": lt["ms"], "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"], "library_ms": None,
+    }, {
+        "name": "warp", "route": "cuda", "source": "moephoto_tpu_torch/csrc/warp.cu",
+        "replaces": "moephoto_tpu/ops/warp.py:170", "launches": warpLaunches,
+        "max_abs_err": warpErr, "ms": wt["ms"], "plain_ms": wt["plain_ms"],
+        "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"], "library_ms": wt["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,16 @@ defaultConfig: Dict[str, tuple] = {
     "bf16": (True, "compute in bfloat16 with fp32 accumulation on the GPU"),
     "device": ("cuda", "torch device of the compute path; 'cpu' only on request"),
     "ensembleSR": (0,),
+    "videoName": ("out_{timestamp}.mkv",),
+    "defaultDecodec": ("",),
+    "defaultEncodec": ("libx264 -pix_fmt yuv420p",),
+    "outDir": ("download",),
+    "uploadDir": ("upload",),
+    "logPath": (".user/log.txt",),
+    "opsPath": (".user/ops.json",),
+    "videoPreview": ("jpeg",),
+    "progressDetail": (False,),
+    "ffmpegPath": ("ffmpeg", "external ffmpeg binary for video decode/encode"),
     "tileSize": (0, "0 = per-model default tile size"),
     "tileBatch": (0, "0 = per-model default tiles per model call"),
     "modelDir": ("./model", "root directory of torch checkpoints"),
@@ -114,6 +124,14 @@ class Config:
     def getConfig(self):
         f = lambda v: 0 if v == "auto" else v
         return tuple(f(self.__dict__[k]) for k in ("crop_sr", "crop_dn", "crop_dns"))
+
+    def getPath(self, **kwargs) -> str:
+        """Default video output name from ``videoName``."""
+        import time
+
+        kwargs["timestamp"] = int(time.time())
+        d = {k: v for k, v in kwargs.items() if k in self.videoName}
+        return self.videoName.format(**d)
 
 
 config = Config()

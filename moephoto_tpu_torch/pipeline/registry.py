@@ -4,7 +4,9 @@ Same model keys and checkpoint file layout as the JAX package's
 registry; each entry resolves to a :class:`ModelExec` with a static
 :class:`TileSpec`.  Ported so far: the MoeNet_lite2 SR entries, and of the
 dehaze registry AOD (``dehaze``), ``sun`` and the three AiLUT entries;
-the other dehaze keys raise ``NotImplementedError``.
+the other dehaze keys raise ``NotImplementedError``.  Temporal models
+(``models/ifrnet.py``) load through :func:`modelPath` in their own
+``getOpt``, as in the JAX package.
 
 The lite entries run unpacked (``channelSplit``, no plane packing).
 Packing exists in the JAX package to fill the TPU's 128-lane matrix unit

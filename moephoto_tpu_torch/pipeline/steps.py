@@ -11,6 +11,7 @@ compute device between steps; the ``output`` step copies to the host.
 
 from __future__ import annotations
 
+import logging
 from functools import reduce
 from typing import Callable, Dict, List, Optional
 
@@ -24,10 +25,12 @@ from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
-NOT_PORTED = {"buffer", "DN", "resize", "slomo", "VSR", "demob"}
+NOT_PORTED = {"DN", "resize", "VSR", "demob"}
+videoOps = {"slomo", "VSR", "demob"}
 apply_ = lambda v, f: f(v)
 identity = lambda x, *_, **__: x
 NonNullWrap = lambda f: lambda x: f(x) if x is not None else None
+applyNonNull = lambda v, f: NonNullWrap(f)(v)
 newNode = lambda opt, op, load=1, total=1: Node(op, load, total, name=opt.get("name", None))
 
 
@@ -47,7 +50,10 @@ BGR2RGB = lambda im: im.flip(-1)
 
 
 def toDevice(im) -> torch.Tensor:
-    """Host HWC uint/float -> float32 HWC in [0, 1] on the compute device."""
+    """Host HWC uint/float -> float32 HWC in [0, 1] on the compute device
+    (a tensor, as ``buffer`` frames arrive, only moves there)."""
+    if isinstance(im, torch.Tensor):
+        return im.to(config.torchDevice(), torch.float32)
     arr = np.asarray(im)
     if arr.dtype == np.uint8:
         arr = arr.astype(np.float32) / 255.0
@@ -95,11 +101,9 @@ def procSR(opt, out, *_):
     if not scale > 1:
         raise TypeError("Invalid scale setting for SR.")
     out["load"] = load * scale * scale
-    fs = []
-    node = appendFuncs(
-        execFilter(exec_), newNode(opt, dict(op="SR", model=mode, scale=scale), load * es), fs
-    )
-    return fs, [node], out
+    fs, ns = convertChannel(out) if out["channel"] and mode == "gan" else ([], [])
+    ns.append(appendFuncs(execFilter(exec_), newNode(opt, dict(op="SR", model=mode, scale=scale), load * es), fs))
+    return fs, ns, out
 
 
 def procDehaze(opt, out, *_):
@@ -117,16 +121,97 @@ def toFloatHost(im) -> np.ndarray:
     return im.float().cpu().numpy()
 
 
+def restrictSize(maxSide: int):
+    """Downscale an HWC tensor to fit within ``maxSide`` (preview helper,
+    reference ``restrictSize`` imageProcess.py:197-214)."""
+    from moephoto_tpu_torch.models.api import resizeBilinear
+
+    def f(im):
+        h, w = im.shape[0], im.shape[1]
+        if h <= maxSide and w <= maxSide:
+            return im
+        s = min(maxSide / h, maxSide / w)
+        return resizeBilinear(im[None], round(h * s), round(w * s))[0]
+
+    return f
+
+
+def _writePreview(im):
+    """Write a preview of the current frame into the shared-memory
+    exchange and notify the client (reference ``fPreview``
+    procedure.py:36-44): at most 2048 px, 8-bit, RGB.  Best effort: a
+    failed preview does not stop the video."""
+    if config.videoPreview and context.shared is not None and context.root is not None:
+        try:
+            arr = imageio.toOutput(toFloatHost(restrictSize(2048)(im)), 8)
+            context.shared.seek(0)
+            imageio.writeFile(arr, context.shared, context, config.videoPreview)
+            context.root.trace(0, preview="{}/.preview.{}".format(config.outDir, config.videoPreview),
+                               fileSize=context.shared.tell())
+        except Exception:  # the video goes on without its preview
+            logging.getLogger("Moe").exception("video preview failed")
+    return im
+
+
 def procOutput(opt, out, *_):
-    if out["source"]:
-        raise NotImplementedError("video output is not ported yet")
     load = out["load"]
     bitDepthOut = out["bitDepth"]
     node0 = Node(dict(op="toFloat"), load)
     node1 = newNode(opt, dict(op="toOutput", bits=bitDepthOut), load)
     fOutput = node1.bindFunc(lambda im: imageio.toOutput(im, bitDepthOut))
     fs = [NonNullWrap(node0.bindFunc(toFloatHost)), NonNullWrap(fOutput)]
-    return fs, [node0, node1], out
+    ns = [node0, node1]
+    if out["source"]:  # video: raw BGR buffers for the encode pipe
+        incomingBGR = bool(out["channel"])
+        fTrace = lambda x: context.root.trace(1 / out["sf"]) or x
+        fs1 = [node0.bindFunc(toFloatHost), fOutput]
+        if not out["channel"]:
+            ns.append(appendFuncs(lambda im: im[..., ::-1], Node(dict(op="Channel")), fs1, False))
+            out["channel"] = 1
+        ns.append(appendFuncs(lambda im: imageio.toBuffer(im, bitDepthOut),
+                              Node(dict(op="toBuffer", bits=bitDepthOut), load), fs1, False))
+        state = {"i": 0}
+
+        def o(im):
+            res = reduce(applyNonNull, fs1, im)
+            if im is not None and state["i"] % 30 == 0:
+                # the preview wants RGB; the frame is BGR unless a model
+                # converted it upstream
+                _writePreview(im.flip(-1) if incomingBGR else im)
+            state["i"] += 1
+            return [res]
+
+        fs = [o, fTrace]
+    return fs, ns, out
+
+
+def procVideo(op):
+    """Temporal step builders, resolved lazily so image-only runs never
+    import the temporal models.  Ported: ``slomo``."""
+
+    def f(opt, out, *_):
+        load = out["load"]
+        fs, ns = convertChannel(out) if out["channel"] else ([], [])
+        if op == "slomo":
+            out["sf"] *= opt["sf"]
+            node = newNode(opt, dict(op="slomo"), load, opt["sf"])
+            from moephoto_tpu_torch.models.ifrnet import doSlomo
+
+            return fs + [doSlomo], ns + [node], out
+        raise NotImplementedError(f"step op {op!r} is not ported yet")
+
+    return f
+
+
+def _getOptVideo(op):
+    def f(opt):
+        if op == "slomo":
+            from moephoto_tpu_torch.models import ifrnet
+
+            return ifrnet.getOpt(opt)
+        raise NotImplementedError(f"step op {op!r} is not ported yet")
+
+    return f
 
 
 procs: Dict[str, Callable] = dict(
@@ -138,14 +223,29 @@ procs: Dict[str, Callable] = dict(
             dict(bitDepth=8, channel=0, source=0),
         )
     ),
+    buffer=(
+        lambda opt, *_: procInput(
+            "buffer",
+            opt["bitDepth"],
+            [lambda args: imageio.fromBuffer(*args, bitDepth=opt["bitDepth"], device=config.torchDevice())],
+            dict(bitDepth=opt["bitDepth"], channel=1, source=1),
+        )
+    ),
     SR=procSR,
     dehaze=procDehaze,
     output=procOutput,
+    slomo=procVideo("slomo"),
 )
 
 stepOpts = dict(
     SR={"toInt": ["scale", "ensemble"], "getOpt": registry.getSR},
     dehaze={"toFloat": ["strength"], "getOpt": registry.getDehaze},
+    slomo={
+        "toInt": ["ensemble"],
+        "toFloat": ["sf", "high", "low"],
+        "isEnabled": ["dedupe"],
+        "getOpt": _getOptVideo("slomo"),
+    },
 )
 
 
@@ -166,6 +266,11 @@ def genProcess(steps: List[dict], root: bool = True, outType: Optional[dict] = N
                 so = stepOpts[opt["op"]]
                 convertValues(int, opt, so.get("toInt", []))
                 convertValues(float, opt, so.get("toFloat", []))
+                convertValues(
+                    lambda obj: obj.get("enable", 0) if isinstance(obj, dict) else obj,
+                    opt,
+                    so.get("isEnabled", []),
+                )
                 if "getOpt" in so:
                     opt["opt"] = so["getOpt"](opt)
         if steps[-1]["op"] != "output":
@@ -173,10 +278,23 @@ def genProcess(steps: List[dict], root: bool = True, outType: Optional[dict] = N
         process = lambda im, name=None: last(rf(im), name, context)
     else:
         process = rf
-    for opt in steps:
-        fs, ns, outType = procs[opt["op"]](opt, outType, nodes)
+    for i, opt in enumerate(steps):
+        op = opt["op"]
+        fs, ns, outType = procs[op](opt, outType, nodes)
         funcs.extend(fs)
         nodes.extend(ns)
+        if op in videoOps:
+            # the steps after a temporal one run per output frame, inside it
+            if i + 1 < len(steps):
+                f, nodesAfter = genProcess(steps[i + 1 :], False, outType)
+            else:
+                f, nodesAfter = identity, []
+            funcs[-1] = funcs[-1](f, nodes[-1], opt["opt"])
+            nodeAfter = Node({}, total=opt.get("sf", 1), learn=0)
+            for node in nodesAfter:
+                nodeAfter.append(node)
+            nodes.append(nodeAfter)
+            break
     if root and steps[0]["op"] == "file":
         n = Node({"op": "write"}, outType["load"])
         nodes.append(n)

@@ -12,12 +12,16 @@ that copies to the host learning the time of all steps before it.
 
 from __future__ import annotations
 
+import json
+import threading
 import time
-from typing import Callable, Dict, List
+from os.path import exists
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 EMA_KEEP = 0.9  # weight retained per new sample
+SILENT_OPS = {"toFloat", "toOutput", "Channel", "toBuffer", "toTorch"}
 
 
 class OpStats:
@@ -34,6 +38,9 @@ class OpStats:
         self.samples = 0
 
     def addSample(self, secondsPerLoad: float):
+        global _dirty
+        if self.samples == 0:
+            _dirty = True
         self.samples += 1
         if self.samples <= 2:
             self.weight = secondsPerLoad
@@ -45,6 +52,8 @@ class OpStats:
 
 
 _registry: Dict[int, OpStats] = {}
+_preloaded: Dict[int, tuple] = {}
+_dirty = False
 
 opKey = lambda define: hash(frozenset(define.items()))
 NullFunc = lambda *args: None
@@ -54,8 +63,60 @@ def _statsFor(define: dict, learn) -> OpStats:
     key = opKey(define)
     st = _registry.get(key)
     if st is None:
-        st = _registry[key] = OpStats(define, learn)
+        st = OpStats(define, learn)
+        if key in _preloaded:
+            st.weight, st.samples = _preloaded[key]
+        _registry[key] = st
     return st
+
+
+# --- persistence ------------------------------------------------------------
+
+def serializeOps() -> List[dict]:
+    return [st.serialize() for st in _registry.values()]
+
+
+def _writeOps(path: str):
+    with open(path, "w") as fp:
+        json.dump(serializeOps(), fp, ensure_ascii=False, indent=2)
+
+
+def saveOps(path: Optional[str] = None, force: bool = False):
+    """Write the learned weights to ``path`` on a daemon thread when a
+    weight changed since the last write (or ``force``)."""
+    global _dirty
+    if path and (_dirty or force):
+        threading.Thread(target=_writeOps, args=(path,), daemon=True).start()
+        _dirty = False
+    return serializeOps()
+
+
+def _readOps(path: str):
+    if not exists(path):
+        return
+    with open(path, "r") as fp:
+        for entry in json.load(fp):
+            _preloaded[opKey(entry["op"])] = (entry["weight"], entry["samples"])
+
+
+def loadOps(path: str):
+    t = threading.Thread(target=_readOps, args=(path,), daemon=True)
+    t.start()
+    return t
+
+
+def clearOps(node, flag: bool = True):
+    """Forget learned weights below ``node`` (the bench ``clear`` option)."""
+    if not flag:
+        return
+    _preloaded.clear()
+
+    def walk(n):
+        _registry[n.op].reset(n.learn)
+        for c in n.nodes:
+            walk(c)
+
+    walk(node)
 
 
 def _childEttSum(node) -> float:
@@ -81,6 +142,27 @@ def updateAncestor(node, adjustEta: bool = False):
             if parent.eta < 0:
                 parent.eta = parent.ett * (parent.total - parent.gone) / parent.total
         node, parent = parent, parent.parent
+
+
+def initialETA(node) -> float:
+    node.gone = 0
+    inner = sum(initialETA(c) for c in node.nodes) if node.nodes else 1
+    base = _registry[node.op].weight * node.load * max(0, node.total - node.gone)
+    node.eta = base * inner if node.total >= 0 else -1
+    node.ett = node.eta
+    return node.ett
+
+
+def setCallback(node, callback, all: bool = False, bench: bool = False):
+    """Give ``node`` and its descendants (the named ones, or ``all``)
+    ``callback``."""
+    def walk(n):
+        if all or hasattr(n, "name"):
+            n.setCallback(callback, bench)
+        for c in n.nodes:
+            walk(c)
+
+    walk(node)
 
 
 def settle(result):
@@ -111,6 +193,25 @@ class Node:
         self.op = opKey(op)
         _statsFor(op, learn)
 
+    def append(self, child: "Node") -> "Node":
+        self.nodes.append(child)
+        child.parent = self
+        return self
+
+    def setCallback(self, callback=NullFunc, bench: bool = False):
+        stats = _registry[self.op]
+        self.callback = NullFunc if stats.op.get("op", "") in SILENT_OPS else callback
+        self.bench = bench and self.learn
+        if self.bench:
+            self.learn = float("inf")
+
+    def multipleLoad(self, scale=1):
+        if self.nodes:
+            for child in self.nodes:
+                child.multipleLoad(scale)
+        else:
+            self.load *= scale
+
     def reset(self) -> "Node":
         self.gone = 0
         stats = _registry[self.op]
@@ -120,6 +221,7 @@ class Node:
 
     def trace(self, progress=1, **info):
         """Advance by ``progress`` units, learn timing, notify."""
+        global _dirty
         self.gone += progress
         stats = _registry[self.op]
         if self.learn > stats.samples:
@@ -130,6 +232,7 @@ class Node:
                     stats.addSample(elapsed / self.load / progress)
                 if stats.samples >= self.learn:
                     self.learn = False
+                    _dirty = True
                 if self.bench:
                     info.update(stats.serialize())
             self.mark = now

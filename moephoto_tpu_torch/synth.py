@@ -4,8 +4,8 @@ The real checkpoints are not part of the repository, so parity runs and
 the GPU smoke test use random weights made from a seed.  The lite draws
 follow the JAX package's random lite parameters
 (``__graft_entry__._lite2Params``) in the same order, so the same seed
-gives the same weights in both packages.  The sun, AOD and AiLUT draws
-are this module's own; the tests hand one dict to both packages.
+gives the same weights in both packages.  The sun, AOD, AiLUT and IFRNet
+draws are this module's own; the tests hand one dict to both packages.
 
 Conv weights are drawn at 1/sqrt(fan-in), where a ConvTranspose's fan-in
 is the taps one output pixel sees (cin * k * k / stride**2); biases,
@@ -168,3 +168,40 @@ def synthAiLUTParams(backbone: str = "tpami", nRanks: int = 3, seed: int = 0,
     p["adaint.intervals_generator.weight"] = lin(3 * (D - 1), nFeats, 0.05)
     p["adaint.intervals_generator.bias"] = (0.3 * rng.randn(3 * (D - 1))).astype(np.float32)
     return _torchDict(p)
+
+
+def synthIFRNetParams(size: str = "M", seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A random IFRNet-S/M/L checkpoint as the reference stores it:
+    ``{"encoder": sd, "decoder": sd}`` (``models/ifrnet.IFRNet``, keys
+    without the module prefix), widths from ``Channels``/``SideChannels``
+    and ``decoderChannels``; per-channel PReLU slopes."""
+    from moephoto_tpu_torch.models.ifrnet import SideChannels, decoderChannels, widths
+
+    rng = np.random.RandomState(seed)
+    enc: Dict[str, np.ndarray] = {}
+    dec: Dict[str, np.ndarray] = {}
+    convE, _, _ = _drawer(rng, enc)
+    convD, _, _ = _drawer(rng, dec)
+
+    def prelu(p, name, c):
+        p[name + ".weight"] = (0.25 + 0.05 * rng.randn(c)).astype(np.float32)
+
+    cin = 3
+    for l, (c, k) in enumerate(widths(size)):
+        convE(f"pyramids.{l}.0.0", cin, c, k)
+        prelu(enc, f"pyramids.{l}.0.1", c)
+        convE(f"pyramids.{l}.1.0", c, c, 3)
+        prelu(enc, f"pyramids.{l}.1.1", c)
+        cin = c
+    side = SideChannels[size]
+    for d, (cin, mid, cout) in enumerate(decoderChannels(size)):
+        pre = f"decoders.{d}"
+        convD(pre + ".0.0", cin, mid, 3)
+        prelu(dec, pre + ".0.1", mid)
+        for name, c in (("conv1", mid), ("conv2", side), ("conv3", mid), ("conv4", side)):
+            convD(f"{pre}.1.{name}.0", c, c, 3)
+            prelu(dec, f"{pre}.1.{name}.1", c)
+        convD(pre + ".1.conv5", mid, mid, 3)
+        prelu(dec, pre + ".1.prelu", mid)
+        convD(pre + ".2", mid, cout, 4, transpose=True, stride=2)
+    return {"encoder": _torchDict(enc), "decoder": _torchDict(dec)}

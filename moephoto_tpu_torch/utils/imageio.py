@@ -1,12 +1,23 @@
-"""Image I/O and dtype conversion on the host (numpy HWC)."""
+"""Image I/O and dtype conversion: images on the host (numpy HWC), raw
+video frames between the ffmpeg pipes and the compute device."""
 
 from __future__ import annotations
 
 import time
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 from PIL import Image
+
+
+def npDtypeFor(bitDepth: int):
+    if bitDepth <= 8:
+        return np.uint8
+    if bitDepth <= 16:
+        return np.uint16
+    return np.int32
 
 
 def toFloat(image: np.ndarray, bitDepth: int = 8) -> np.ndarray:
@@ -26,6 +37,37 @@ def toOutput(image, bitDepth: int = 8) -> np.ndarray:
     arr = np.asarray(image, dtype=np.float32) * quant
     np.clip(arr, 0, quant - 1, out=arr)
     return arr.astype(dtype)
+
+
+def toBuffer(image: Optional[np.ndarray], bitDepth: int = 16) -> Optional[bytes]:
+    """Integer HWC image -> raw bytes for the encode pipe."""
+    if image is None:
+        return None
+    return np.ascontiguousarray(image.astype(npDtypeFor(bitDepth))).tobytes()
+
+
+def fromBuffer(buffer, height: int, width: int, bitDepth: int = 16,
+               device: Optional[torch.device] = None) -> Optional[torch.Tensor]:
+    """Raw 3-channel frame bytes -> float32 HWC in [0, 1) on ``device``.
+
+    A 16-bit frame goes to the device as it is (6 bytes a pixel) and is
+    converted there: the bytes are read as int16, since torch's uint16 is
+    thinly supported, and the low 16 bits taken back as an integer, so
+    each value is u16 / 65536 exactly, as the JAX package's native codec
+    gives it."""
+    if not buffer:
+        return None
+    n = height * width * 3
+    if bitDepth == 16:
+        with warnings.catch_warnings():
+            # bytes are read-only; the tensor is only read, to upload it
+            warnings.simplefilter("ignore", UserWarning)
+            raw = torch.frombuffer(buffer, dtype=torch.int16, count=n)
+        u16 = raw.to(device).to(torch.int32) & 0xFFFF
+        return (u16.to(torch.float32) / 65536.0).reshape(height, width, 3)
+    arr = np.frombuffer(buffer, dtype=npDtypeFor(bitDepth), count=n)
+    x = torch.from_numpy(arr.astype(np.float32) / (1 << bitDepth))
+    return x.reshape(height, width, 3).to(device)
 
 
 def dedupeAlpha(x: np.ndarray) -> Tuple[str, np.ndarray]:

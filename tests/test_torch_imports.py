@@ -38,7 +38,8 @@ def test_no_jax_import(path):
 
 
 def test_port_entry_modules_load_without_jax():
-    code = ("import sys, moephoto_tpu_torch.cli, moephoto_tpu_torch.pipeline.steps; "
+    code = ("import sys, moephoto_tpu_torch.cli, moephoto_tpu_torch.pipeline.steps, "
+            "moephoto_tpu_torch.video.engine, moephoto_tpu_torch.models.ifrnet; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'moephoto_tpu' or m.startswith('moephoto_tpu.')]; "
             "assert not bad, bad")
