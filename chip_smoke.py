@@ -15,7 +15,12 @@ Phases, each printing one JSON line:
               values that equal vertices; warp at IFRNet-M's four 1080p
               warp shapes, a ragged shape, B = 2 and a stride-0 batch,
               both padding modes, fp32 and bf16, flows up to 40 px, 1e6
-              and NaN, and backWarp against its plain fold
+              and NaN, and backWarp against its plain fold; the DCNv2
+              sampler (K3) at EDVR's three 640x360 shapes in bf16 and
+              fp32 (TF32 off), ragged shapes, dg 4 and 8, B = 1, Cout 96,
+              16-byte and scalar corner loads, offsets up to 40 px, 1e6
+              and NaN, offsets and mask read as strided slices of one
+              conv output
   4. main     runs the CLI's image SR path (MoeNet_lite2 x4, bf16) on a
               seeded 1920x1080 PNG with seeded random weights, checks the
               7680x4320 output and the kernel launch count, and holds a
@@ -42,6 +47,18 @@ Phases, each printing one JSON line:
               chunk), and the warp at each of its four shapes on the
               inputs the CLI run gave it, beside its bound, its plain
               version and F.grid_sample (and on incoherent 40 px flows)
+  8. vsr      runs the CLI's video path with IconVSR x4 (fake ffmpeg
+              decode -> buffer -> VSR in bf16 -> output -> fake ffmpeg
+              encode) on 22 seeded-pattern 640x360 frames with seeded
+              random weights (full width, 30-block trunks): checks 22
+              encoded 2560x1440 frames, 4 DCN launches per EDVR call the
+              model counted, and prints the K2 launches and the largest
+              |offset| each DCN level saw; holds the VSR stream on 9
+              frames of 128x128 in fp32 on the card against the CPU;
+              then times whole 22-frame clips on device-resident frames
+              (input Mpx/s, a profiled clip by kernel name) and K3 at
+              each of its three shapes on the inputs the CLI run gave
+              it, beside its bound and its plain version
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; with no CUDA device it
@@ -103,6 +120,20 @@ WARP_FLOP_PER_VALUE, WARP_FLOP_PER_PX = 9, 12  # warp.cu: the blend per channel;
 # algorithms differ from the CPU's by ~1e-5 per layer, and the warps
 # carry a flow difference times the image gradient through four levels
 SLOMO_TOL = 2e-3
+VSR = [{"op": "VSR"}]
+VSR_H, VSR_W, VSR_FRAMES, VSR_BLOCKS = 360, 640, 22, 30
+# K3 vs its plain version: the sampled values agree bit for bit, the
+# contraction sums 9 C products in another order (fp32), and bf16 rounds
+# the output once, so a sum near a rounding boundary may round the other way
+DCN_FP32_TOL, DCN_BF16_REL, DCN_BF16_ABS = 1e-4, 2.0**-7, 2.0**-8
+# EDVR's DCNs on one 640x360 clip (7 frames padded to 640x384): (H, W)
+DCN_SHAPES = {"l3": (96, 160), "l2": (192, 320), "l1": (384, 640)}
+DCN_LEVELS = ("l3", "l2", "l1", "cas")  # call order within one EDVR call
+# VSR stream on the card vs the CPU, fp32, outputs around [0, 1]: cuDNN's
+# conv algorithms differ from the CPU's by ~1e-5 per layer, through 30-block
+# trunks and recurrences whose warps and DCNs turn a coordinate difference
+# into a value difference times the local gradient
+VSR_TOL = 2e-3
 
 
 def emit(**kw):
@@ -277,20 +308,22 @@ def timing(seed, gpu):
 
 
 def resetCounts():
+    from moephoto_tpu_torch.ops import deform
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
     from moephoto_tpu_torch.ops.lut import ailutTransform
     from moephoto_tpu_torch.ops.warp import warp
 
-    fusedUpHeads.launches = ailutTransform.launches = warp.launches = 0
+    fusedUpHeads.launches = ailutTransform.launches = warp.launches = deform.deformConv2d.launches = 0
 
 
 def readCounts():
+    from moephoto_tpu_torch.ops import deform
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
     from moephoto_tpu_torch.ops.lut import ailutTransform
     from moephoto_tpu_torch.ops.warp import warp
 
     return {"fusedUpHeads": fusedUpHeads.launches, "ailutTransform": ailutTransform.launches,
-            "warp": warp.launches}
+            "warp": warp.launches, "deformConv2d": deform.deformConv2d.launches}
 
 
 def lutBound(img, lut, vertices):
@@ -772,6 +805,269 @@ def timingSlomo(seed, gpu, pathInputs):
     return shapes["544x960x32_bfloat16"]
 
 
+def isDcnKernel(name: str) -> bool:
+    return "::dcnKernel<" in name
+
+
+def dcnCase(seed, B, h, w, c, cout, dg, dtype, offDtype, scale):
+    """Seeded x in [0, 1), offsets uniform in [-scale, scale] and mask in
+    (0, 1) read as strided slices of one (B, h, w, 3 dg 9) tensor, as the
+    offset conv's output is read; weights at 1/sqrt(fan-in)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((B, h, w, c), generator=g, device="cuda").to(dtype)
+    off = (torch.rand((B, h, w, 2 * dg * 9), generator=g, device="cuda") * 2 - 1) * scale
+    logits = torch.randn((B, h, w, dg * 9), generator=g, device="cuda")
+    both = torch.cat([off, torch.sigmoid(logits)], -1).to(offDtype)
+    weight = torch.randn((cout, c, 3, 3), generator=g, device="cuda") / (9 * c) ** 0.5
+    bias = torch.randn((cout,), generator=g, device="cuda") * 0.1
+    return x, both[..., : 2 * dg * 9], both[..., 2 * dg * 9 :], weight, bias, dg
+
+
+def dcnBound(x, off, mask, cout):
+    """Least time for one DCN call: x, the offsets and the mask read once
+    (only the offset part of a strided slice), the output written once,
+    against the peak rate of x's type for 2 * 9 C Cout operations a pixel."""
+    B, h, w, c = x.shape
+    px = B * h * w
+    nbytes = px * (c * x.element_size() + off.shape[-1] * off.element_size()
+                   + mask.shape[-1] * mask.element_size() + cout * x.element_size()) + 9 * c * cout * x.element_size()
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    tOps, tBytes = 2 * 9 * c * cout * px / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(tOps, tBytes), ("operations" if tOps > tBytes else "bytes")
+
+
+def checkDcn(seed):
+    """deformConv2d against deformConv2dPlain on the card: NaN exactly
+    where the plain version is NaN, every other value within the
+    tolerance."""
+    from moephoto_tpu_torch.ops.deform import deformConv2d, deformConv2dPlain
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {f"path_{lv}_7x{h}x{w}x64_{str(d)[6:]}": (7, h, w, 64, 64, 8, d, d, 2.0)
+             for lv, (h, w) in DCN_SHAPES.items() for d in (bf, f32)}
+    cases.update({
+        "ragged_1x37x101x64_cout96_bfloat16_fp32_offsets": (1, 37, 101, 64, 96, 8, bf, f32, 40.0),
+        "ragged_1x37x101x64_float32": (1, 37, 101, 64, 64, 8, f32, f32, 40.0),
+        "dg4_2x45x77x32_cout48_bfloat16": (2, 45, 77, 32, 48, 4, bf, bf, 40.0),
+        "dg4_2x45x77x32_cout48_float32": (2, 45, 77, 32, 48, 4, f32, f32, 40.0),
+        "scalar_loads_1x29x53x12_cout20_dg4_bfloat16": (1, 29, 53, 12, 20, 4, bf, bf, 40.0),
+        "huge_nan_1x64x96x64_bfloat16": (1, 64, 96, 64, 64, 8, bf, bf, 1e6),
+        "huge_nan_1x64x96x64_float32": (1, 64, 96, 64, 64, 8, f32, f32, 1e6),
+    })
+    errs = {}
+    for i, (name, (B, h, w, c, cout, dg, dtype, offDtype, scale)) in enumerate(cases.items()):
+        x, off, mask, weight, bias, dg = dcnCase(seed + 70 + i, B, h, w, c, cout, dg, dtype, offDtype, scale)
+        if name.startswith("huge"):  # 1e6 everywhere but a few NaN offsets
+            off[0, ::9, ::7, 5] = float("nan")
+        got = deformConv2d(x, off, mask, weight, bias, dg).float()
+        want = deformConv2dPlain(x, off, mask, weight, bias, dg).float()
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan) or bool(nan.any()) != name.startswith("huge"):
+            raise AssertionError(f"deformConv2d NaNs differ from its plain version: {name}")
+        diff, ref = (got - want).abs()[~nan], want.abs()[~nan]
+        tol = DCN_FP32_TOL * ref.clamp_min(1.0) if dtype == f32 else DCN_BF16_REL * ref + DCN_BF16_ABS
+        errs[name] = float(diff.max())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"deformConv2d disagrees with its plain version: {name} max {errs[name]}")
+        del x, off, mask, got, want, diff
+    emit(phase="kernels", kernel="deformConv2d", fp32_tol=f"{DCN_FP32_TOL}*max(1,|plain|)",
+         bf16_tol=f"{DCN_BF16_REL}*|plain|+{DCN_BF16_ABS}", max_abs_err=errs)
+    return errs["path_l1_7x384x640x64_bfloat16"]
+
+
+class DcnRecorder:
+    """Stands in for ``ops.deform.deformConv2d``: calls ``record`` on each
+    call's arguments, then the wrapper; ``launches`` is the wrapper's own
+    count, which the wrapper keeps through its module's name."""
+
+    def __init__(self, orig, record):
+        self.orig, self.record = orig, record
+
+    def __call__(self, *args):
+        self.record(*args)
+        return self.orig(*args)
+
+    @property
+    def launches(self):
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.orig.launches = n
+
+
+class PathDcn:
+    """While installed (a DcnRecorder in place of ``ops.deform.deformConv2d``,
+    which every ModulatedDeformConvPack calls): per DCN level, the largest
+    |offset|, the shares of offsets above 3 px and below 1 px, and the
+    first inputs, kept to time the kernel on what the path gave it; and
+    every EDVR module that ran, to read the calls it counted."""
+
+    def __enter__(self):
+        from moephoto_tpu_torch.models.iconvsr import EDVR
+        from moephoto_tpu_torch.ops import deform
+
+        self.module, self.orig = deform, deform.deformConv2d
+        self.maxOffset, self.over3, self.under1, self.inputs, self.nan = {}, {}, {}, {}, False
+        self.edvr, self.n = set(), 0
+
+        def record(x, offset, mask, weight, bias, dg, *args):
+            lv = DCN_LEVELS[self.n % 4]
+            self.n += 1
+            a = offset.float().abs()
+            self.nan = self.nan or bool(torch.isnan(a).any())
+            self.maxOffset[lv] = max(self.maxOffset.get(lv, 0.0), float(a.nan_to_num(0.0).max()))
+            self.over3.setdefault(lv, []).append(float((a > 3).float().mean()))
+            self.under1.setdefault(lv, []).append(float((a < 1).float().mean()))
+            self.inputs.setdefault(lv, (x, offset, mask, weight, bias, dg))
+
+        deform.deformConv2d = DcnRecorder(self.orig, record)
+
+        def hook(module, args):
+            if isinstance(module, EDVR):
+                self.edvr.add(module)
+
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.deformConv2d = self.orig
+        self.handle.remove()
+        return False
+
+
+def runVsr(work):
+    """The CLI's video path with IconVSR x4, as a user calls it, on the
+    card in bf16: 22 decoded 640x360 frames -> 22 encoded at 2560x1440."""
+    from moephoto_tpu_torch import cli
+
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = f"{VSR_W}x{VSR_H}", str(VSR_FRAMES)
+    dst = os.path.join(work, "vsr.mkv")
+    with PathDcn() as dcn:
+        resetCounts()
+        t0 = time.perf_counter()
+        path, frames = cli.runVideo(os.path.join(work, "in.mkv"), dst, VSR)
+        seconds = time.perf_counter() - t0
+        launches = readCounts()
+    with open(path) as fp:
+        meta = json.load(fp)
+    oh, ow = 4 * VSR_H, 4 * VSR_W
+    want = VSR_FRAMES * oh * ow * 6
+    if frames != VSR_FRAMES or meta != {"bytes": want, "s": f"{ow}x{oh}"}:
+        raise AssertionError(f"vsr: read {frames} frames, encoder got {meta}, want {want} bytes of {ow}x{oh}")
+    edvrCalls = sum(m.calls for m in dcn.edvr)
+    if len(dcn.edvr) != 1 or edvrCalls < 2 or launches["deformConv2d"] != 4 * edvrCalls:
+        raise AssertionError(f"vsr launched {launches}, EDVR counted {edvrCalls} calls: want 4 DCNs a call")
+    if launches["warp"] == 0 or dcn.nan:
+        raise AssertionError(f"vsr: {launches['warp']} warp launches, NaN offsets {dcn.nan}")
+    emit(phase="vsr", steps=VSR, input=[VSR_FRAMES, VSR_H, VSR_W, 3], frames_read=frames,
+         encoded_frames=meta["bytes"] // (ow * oh * 6), geometry=meta["s"], seconds=seconds, launches=launches,
+         edvr_calls=edvrCalls, max_abs_offset_by_dcn_level=dcn.maxOffset,
+         share_abs_offset_over_3px={lv: sum(v) / len(v) for lv, v in dcn.over3.items()},
+         share_abs_offset_under_1px={lv: sum(v) / len(v) for lv, v in dcn.under1.items()})
+    return launches["deformConv2d"], dcn.inputs
+
+
+def vsrStream(opt, collect):
+    from moephoto_tpu_torch.models.iconvsr import doVSR
+    from moephoto_tpu_torch.progress import Node
+
+    return doVSR(lambda x: None if x is None else [collect(x)], Node({"op": "smoke"}), opt)
+
+
+def feedClip(opt, frames, collect):
+    """A whole clip through a fresh stream, with the reflection padding the
+    video engine sets (3 frames at each end): the outputs of every frame."""
+    from moephoto_tpu_torch.models.iconvsr import VSROpt
+
+    o = VSROpt()
+    o.model, o.dtype, o.start = opt.model, opt.dtype, 3
+    f = vsrStream(o, collect)
+    out = []
+    for fr in frames:
+        out += f(fr)
+    o.end = -3
+    return out + f(None)
+
+
+def checkVsrCrop(seed):
+    """The VSR stream on 9 frames of 128x128, IconVSR at full depth in
+    fp32, on the card (kernel path) against the CPU (plain path), same
+    weights."""
+    from moephoto_tpu_torch.models.iconvsr import getOpt
+
+    frames = np.random.RandomState(seed + 6).rand(9, 128, 128, 3).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        opt = getOpt({}, torch.device(dev), torch.float32)
+        resetCounts()
+        outs[dev] = torch.stack(feedClip(opt, [torch.from_numpy(f).to(dev) for f in frames], lambda x: x.cpu()))
+        launches = readCounts()
+        if (dev == "cuda") != (launches["deformConv2d"] > 0 and launches["warp"] > 0):
+            raise AssertionError(f"vsr crop on {dev}: {launches}")
+    err = (outs["cuda"] - outs["cpu"]).abs()
+    tol = VSR_TOL * outs["cpu"].abs().clamp_min(1.0)
+    if not (outs["cuda"].shape == (9, 512, 512, 3) and bool((err <= tol).all()) and torch.isfinite(outs["cuda"]).all()):
+        raise AssertionError(f"vsr crop: shape {tuple(outs['cuda'].shape)}, card vs CPU {float(err.max())}")
+    emit(phase="vsr_crop", shape=list(outs["cuda"].shape), max_abs_err=float(err.max()),
+         tol=f"{VSR_TOL}*max(1,|cpu|)")
+
+
+def timingVsr(seed, gpu, pathInputs):
+    """Input Mpx/s of whole 22-frame clips on device-resident 640x360
+    frames (bf16), a profiled clip by kernel name, and K3 at each of its
+    three shapes on the inputs the CLI run gave it, beside its bound and
+    its plain version."""
+    from moephoto_tpu_torch.models.iconvsr import getOpt
+    from moephoto_tpu_torch.ops.deform import deformConv2d, deformConv2dPlain
+
+    opt = getOpt({})
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = [torch.rand((VSR_H, VSR_W, 3), generator=g, device="cuda") for _ in range(VSR_FRAMES)]
+    clip = lambda: feedClip(opt, frames, lambda x: x.mean())
+    clip()  # warm-up: cuDNN's first calls at these shapes
+    runs = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        outFrames = len(clip())
+        end.record()
+        torch.cuda.synchronize()
+        runs.append({"seconds_wall": time.perf_counter() - t0, "seconds_events": start.elapsed_time(end) / 1e3,
+                     "output_frames": outFrames})
+    resetCounts()
+    wallMs, rows = profileOnce(clip)
+    launches = readCounts()
+    deviceMs = sum(t for _, t in rows)
+    dcnMs = sum(t for k, t in rows if isDcnKernel(k))
+    warpMs = sum(t for k, t in rows if isWarpKernel(k))
+    emit(phase="vsr_timing", gpu=gpu, frames=VSR_FRAMES, runs=runs,
+         input_mpx_per_s=[VSR_FRAMES * VSR_H * VSR_W / 1e6 / r["seconds_events"] for r in runs],
+         profiled_launches=launches, profiled_wall_ms=wallMs, profiled_device_ms=deviceMs,
+         device_ms_per_frame=deviceMs / VSR_FRAMES, dcn_device_ms_per_frame=dcnMs / VSR_FRAMES,
+         warp_device_ms_per_frame=warpMs / VSR_FRAMES,
+         device_idle_share=(1 - deviceMs / wallMs) if wallMs else None,
+         top_kernels=[{"name": k[:80], "ms": t} for k, t in rows[:16]])
+
+    shapes = {}
+    for lv in ("l3", "l2", "l1", "cas"):
+        x, off, mask, weight, bias, dg = pathInputs[lv]
+        kernelMs = sum(t for k, t in profileOnce(
+            lambda: [deformConv2d(x, off, mask, weight, bias, dg) for _ in range(ITERS)])[1] if isDcnKernel(k)) / ITERS
+        wrapperMs = cudaTimeMs(lambda: deformConv2d(x, off, mask, weight, bias, dg), ITERS)
+        plainMs = cudaTimeMs(lambda: deformConv2dPlain(x, off, mask, weight, bias, dg), 2)
+        bound, boundBy = dcnBound(x, off, mask, weight.shape[0])
+        shapes[lv] = dict(shape=list(x.shape), dtype=str(x.dtype)[6:], offset_dtype=str(off.dtype)[6:],
+                          offset_strides=list(off.stride()), ms=kernelMs, wrapper_ms=wrapperMs, plain_ms=plainMs,
+                          bound_ms=bound, bound_by=boundBy, library_ms=None)
+    emit(phase="kernel_timing", gpu=gpu, kernel="deformConv2d", by_level=shapes,
+         library="none: no single PyTorch call computes DCNv2 (torchvision is absent)")
+    return shapes["l1"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -781,9 +1077,10 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from moephoto_tpu_torch.config import config
-    from moephoto_tpu_torch.ops import _build, fusedup, lut, warp
-    from moephoto_tpu_torch.synth import (synthAiLUTParams, synthAODParams, synthIFRNetParams, synthLite2Params,
-                                          synthSunParams)
+    from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
+    from moephoto_tpu_torch.ops import _build, deform, fusedup, lut, warp
+    from moephoto_tpu_torch.synth import (synthAiLUTParams, synthAODParams, synthIconVSRParams, synthIFRNetParams,
+                                          synthLite2Params, synthSunParams)
 
     # fp32 comparisons run in true fp32: cuDNN would run fp32 convs in TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -795,7 +1092,7 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    sources = (fusedup.SOURCE, lut.SOURCE, warp.SOURCE)
+    sources = (fusedup.SOURCE, lut.SOURCE, warp.SOURCE, deform.SOURCE)
     _build.loadAll(sources)
     emit(phase="build", seconds=time.perf_counter() - t0, libraries={src: {
         "nvcc_seconds": _build.buildInfo[src]["seconds"],
@@ -806,6 +1103,7 @@ def main(argv=None) -> int:
     errs = checkKernel(args.seed)
     lutErr = checkLut(args.seed)
     warpErr = checkWarp(args.seed)
+    dcnErr = checkDcn(args.seed)
 
     config.device, config.bf16 = "cuda", True
     with tempfile.TemporaryDirectory() as work:
@@ -813,7 +1111,8 @@ def main(argv=None) -> int:
                               ("demoire", "sun_epoch_200.pth", synthSunParams(args.seed)),
                               ("dehaze", "AOD_net_epoch_relu_10.pth", synthAODParams(args.seed)),
                               ("AiLUT", "AiLUT-FiveK-sRGB.pth", synthAiLUTParams("tpami", 3, args.seed)),
-                              ("IFRNet", "IFRNet_GoPro.pth", synthIFRNetParams("M", args.seed))):
+                              ("IFRNet", "IFRNet_GoPro.pth", synthIFRNetParams("M", args.seed)),
+                              ("vsr", os.path.basename(vsrPath), synthIconVSRParams(args.seed, VSR_BLOCKS))):
             os.makedirs(os.path.join(work, sub), exist_ok=True)
             torch.save(sd, os.path.join(work, sub, name))
         config.modelDir, config.opsPath, config.ffmpegPath = work, os.path.join(work, "ops.json"), fakeFfmpeg(work)
@@ -827,6 +1126,9 @@ def main(argv=None) -> int:
         warpLaunches, pathInputs = runVideo(work)
         checkVideoCrop(args.seed)
         wt = timingSlomo(args.seed, smi, pathInputs)
+        dcnLaunches, dcnInputs = runVsr(work)
+        checkVsrCrop(args.seed)
+        dt = timingVsr(args.seed, smi, dcnInputs)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
@@ -843,6 +1145,11 @@ def main(argv=None) -> int:
         "replaces": "moephoto_tpu/ops/warp.py:170", "launches": warpLaunches,
         "max_abs_err": warpErr, "ms": wt["ms"], "plain_ms": wt["plain_ms"],
         "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"], "library_ms": wt["library_ms"],
+    }, {
+        "name": "deformConv2d", "route": "cuda", "source": "moephoto_tpu_torch/csrc/dcn.cu",
+        "replaces": "moephoto_tpu/ops/dcnkernel.py:184", "launches": dcnLaunches,
+        "max_abs_err": dcnErr, "ms": dt["ms"], "plain_ms": dt["plain_ms"],
+        "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"], "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ Examples:
     python -m moephoto_tpu_torch.cli image 'shots/*.png' outdir/ --preset sr
     python -m moephoto_tpu_torch.cli video in.mkv out.mkv \
         --steps '[{"op":"slomo","model":"IFRNet M","sf":2}]'
+    python -m moephoto_tpu_torch.cli video in.mkv out.mkv --steps '[{"op":"VSR"}]'
 
 Video goes through ffmpeg (``ffmpegPath`` in ``.user/config.json``).
 

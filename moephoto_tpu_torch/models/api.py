@@ -74,12 +74,47 @@ def packBlockDiag(sd: StateDict, pack: int = 3) -> StateDict:
     return out
 
 
-def resizeBilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bilinear resize of NHWC to (h, w): half-pixel centres, edge clamp,
-    no antialiasing when shrinking, as the JAX package's resize."""
+def resizeBilinear(x: torch.Tensor, h: int, w: int, align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NHWC to (h, w), no antialiasing when shrinking,
+    as the JAX package's resize: half-pixel centres with edge clamp, or
+    corner-aligned with ``align_corners``.  The exact 2x upsample, which
+    the JAX package writes as phase adds (``resizeBilinear2x``), is this
+    resize at (2h, 2w)."""
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False, antialias=False)
+                      align_corners=align_corners, antialias=False)
     return y.permute(0, 2, 3, 1)
+
+
+def leakyRelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+sigmoid = torch.sigmoid
+
+
+def conv(layer: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A conv layer on an NHWC tensor, run on its NCHW view -> NHWC."""
+    return layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def pixelShuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Torch pixel_shuffle on NHWC: channel index c r^2 + i r + j."""
+    b, h, w, c = x.shape
+    co = c // (r * r)
+    y = x.reshape(b, h, w, co, r, r).permute(0, 1, 4, 2, 5, 3)  # b, h, i, w, j, co
+    return y.reshape(b, h * r, w * r, co)
+
+
+def avgPool2d(x: torch.Tensor, k: int, stride: int, padding: int = 0,
+              count_include_pad: bool = True) -> torch.Tensor:
+    """Average pool on NHWC, summed in fp32 and rounded once."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).float(), k, stride, padding, count_include_pad=count_include_pad)
+    return y.to(x.dtype).permute(0, 2, 3, 1)
+
+
+def maxPool2d(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """Max pool on NHWC; the padding counts as -inf."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding).permute(0, 2, 3, 1)
 
 
 @contextlib.contextmanager

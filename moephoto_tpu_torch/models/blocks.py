@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from moephoto_tpu_torch.models.api import globalAvgPool
@@ -22,3 +23,26 @@ class FRM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         return x * torch.sigmoid(self.conv_du(globalAvgPool(x)))
+
+
+class ResidualBlockNoBN(nn.Module):
+    """conv -> relu -> conv, plus the input (reference models.py:439-458,
+    JAX ``residualBlockNoBN``).  Keys ``conv1``, ``conv2``."""
+
+    def __init__(self, c: int = 64):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c, c, 3, 1, 1)
+        self.conv2 = nn.Conv2d(c, c, 3, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+        return x + self.conv2(F.relu(self.conv1(x)))
+
+
+class ConvResidualBlocks(nn.Sequential):
+    """conv 3x3 -> lrelu(0.1) -> N ResidualBlockNoBN (reference
+    videoSR.py:309-311, JAX ``residualBlocksWithInputConv``); keys ``0.*``
+    and ``2.{i}.*``.  Runs on NCHW."""
+
+    def __init__(self, cin: int, c: int = 64, numBlocks: int = 30):
+        super().__init__(nn.Conv2d(cin, c, 3, 1, 1), nn.LeakyReLU(0.1),
+                         nn.Sequential(*[ResidualBlockNoBN(c) for _ in range(numBlocks)]))

@@ -1,0 +1,176 @@
+"""Modulated deformable 3x3 convolution, DCNv2 (K3).
+
+:func:`deformConv2d` replaces the Pallas kernel of the JAX package
+(``moephoto_tpu/ops/dcnkernel.py:184`` ``dcnDensePallas``, body
+``_dcnKernel`` :57, dispatched by ``ops/deform.py:166`` ``deformConv2d``)
+with a CUDA kernel written for Hopper (``csrc/dcn.cu``).  The TPU kernel
+folds bilinear sampling into hat weights over a [-M, M]^2 shift window,
+exact only while every |offset| <= M, so the JAX package picks a tier
+(M = 1, M = 3 or an XLA gather) from the largest |offset| of the call.
+The card gathers from any address, so the kernel computes the function
+itself for any offset: no window, no tiers, and no host sync to choose
+one.  On CPU tensors the wrapper runs :func:`deformConv2dPlain`.
+
+Semantics (torchvision ``deform_conv2d``, JAX ``_deformConvGather``
+``deform.py:96``): for output pixel p, tap k of the 3x3 kernel and input
+channel c of deformable group g = c // (C / dg),
+
+    out[p] = bias + sum_k sum_c W[:, c, k] * m[g, k] * bilinear(x[..., c], p + p_k + delta[g, k])
+
+with delta in (y, x) order; a bilinear corner outside the image reads
+zero.  Rounding follows the Pallas body: each sampled and modulated value
+is formed in fp32 and rounded to x's dtype before the contraction
+(``dcnkernel.py:153-155``), the contraction accumulates in fp32, and the
+bias is added in fp32 before one rounding to x's dtype (the order of
+``_deformConvDense``; the Pallas path rounds before and after the bias,
+which differs by at most one bf16 ulp).
+
+Coordinates: each sampling coordinate is clamped to [-2, side + 1] (NaN to
+-2) before it becomes an index, so an offset of 1e6 reads nothing out of
+bounds and contributes zero, as in the gather path; the bilinear weight
+comes from the unclamped coordinate, so a NaN offset gives NaN at its
+output pixel.
+
+Layouts are the JAX package's: x (B, H, W, C); offset (B, H, W, 2 dg 9),
+read as (dg, 9, 2) with y first; mask (B, H, W, dg 9), already through the
+sigmoid.  The weight is the torch layout (Cout, C, 3, 3) the checkpoint
+holds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+from torch import nn
+
+from moephoto_tpu_torch.ops import _build
+from moephoto_tpu_torch.ops.warp import _coords, _unitChannel
+
+SOURCE = "dcn.cu"
+MAX_C, MAX_COUT = 128, 128
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def deformConv2dPlain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor], deformableGroups: int, padding: int = 1,
+                      dilation: int = 1) -> torch.Tensor:
+    """Torch-op version of the kernel, the exact gather form: every
+    sampled value with the kernel's fp32 operations in its order, then one
+    fp32 matrix product per tap.  -> (B, H, W, Cout) in x's dtype."""
+    B, H, W, C = x.shape
+    Cout, _, kh, kw = weight.shape
+    K, dg = kh * kw, deformableGroups
+    cg = C // dg
+    dev = x.device
+    off = offset.reshape(B, H, W, dg, K, 2)
+    m = mask.reshape(B, H, W, dg, K)
+    table = x.reshape(B * H * W * dg, cg)
+    base = (torch.arange(B, device=dev) * (H * W)).reshape(B, 1, 1, 1)
+    group = torch.arange(dg, device=dev)
+    ys = torch.arange(H, dtype=torch.float32, device=dev).reshape(1, H, 1, 1)
+    xs = torch.arange(W, dtype=torch.float32, device=dev).reshape(1, 1, W, 1)
+    taps = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(K, C, Cout).float()
+    zero = torch.zeros((), device=dev)
+    out = torch.zeros((B * H * W, Cout), dtype=torch.float32, device=dev)
+    for k in range(K):
+        ky, kx = divmod(k, kw)
+        y0, y1, wy = _coords((ys + float(ky * dilation - padding)) + off[..., k, 0].float(), H)
+        x0, x1, wx = _coords((xs + float(kx * dilation - padding)) + off[..., k, 1].float(), W)
+
+        def tap(yi, xi):
+            inside = (yi >= 0) & (yi <= H - 1) & (xi >= 0) & (xi <= W - 1)
+            idx = (base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)) * dg + group
+            return torch.where(inside[..., None], table[idx].float(), zero)  # (B, H, W, dg, cg)
+
+        wx, wy = wx[..., None], wy[..., None]
+        ux, uy = 1 - wx, 1 - wy
+        top = tap(y0, x0) * ux + tap(y0, x1) * wx
+        bot = tap(y1, x0) * ux + tap(y1, x1) * wx
+        samp = (top * uy + bot * wy) * m[..., k, None].float()
+        out = out + samp.to(x.dtype).float().reshape(B * H * W, C) @ taps[k]
+    if bias is not None:
+        out = out + bias.float()
+    return out.reshape(B, H, W, Cout).to(x.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    if not getattr(lib, "_typed", False):
+        i64, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        lib.dcnForward.argtypes = ([i32, i32, i32] + [ptr, i64, i64, i64] * 3 + [ptr, ptr, ptr]
+                                   + [i32] * 8 + [ptr])
+        lib.dcnForward.restype = i32
+        lib.dcnErrorString.argtypes = [i32]
+        lib.dcnErrorString.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def deformConv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor], deformableGroups: int, padding: int = 1,
+                 dilation: int = 1) -> torch.Tensor:
+    """DCNv2 3x3: (B, H, W, C) -> (B, H, W, Cout) in x's dtype.
+
+    x, offset and mask fp32 or bf16 (each its own), with any batch, row
+    and pixel strides; C a multiple of ``deformableGroups``, C <= 128,
+    Cout <= 128.  CPU tensors take :func:`deformConv2dPlain`; CUDA tensors
+    launch the kernel or raise."""
+    if all(t.device.type == "cpu" for t in (x, offset, mask)):
+        return deformConv2dPlain(x, offset, mask, weight, bias, deformableGroups, padding, dilation)
+    others = (offset, mask, weight) + ((bias,) if bias is not None else ())
+    if not (x.is_cuda and all(t.device == x.device for t in others)):
+        raise ValueError(f"deformConv2d: x on {x.device}, offset on {offset.device}, mask on {mask.device}, "
+                         f"weight and bias on {weight.device}")
+    if any(t.dtype not in _TYPES for t in (x, offset, mask)):
+        raise TypeError(f"deformConv2d takes fp32 or bf16 tensors, got {x.dtype}/{offset.dtype}/{mask.dtype}")
+    B, H, W, C = x.shape
+    Cout, dg = weight.shape[0], deformableGroups
+    if weight.shape != (Cout, C, 3, 3) or offset.shape != (B, H, W, 2 * dg * 9) or mask.shape != (B, H, W, dg * 9):
+        raise ValueError(f"deformConv2d: x {tuple(x.shape)}, offset {tuple(offset.shape)}, "
+                         f"mask {tuple(mask.shape)}, weight {tuple(weight.shape)}, dg {dg}")
+    if not (dg >= 1 and C % dg == 0 and C <= MAX_C and 1 <= Cout <= MAX_COUT):
+        raise ValueError(f"deformConv2d: C={C}, Cout={Cout}, dg={dg} (C a multiple of dg, C <= {MAX_C}, "
+                         f"Cout <= {MAX_COUT})")
+    out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    x, offset, mask = _unitChannel(x), _unitChannel(offset), _unitChannel(mask)
+    taps = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, C, Cout).contiguous()
+    b = bias.float().contiguous() if bias is not None else None
+    lib = _library()
+    err = lib.dcnForward(_TYPES[x.dtype], _TYPES[offset.dtype], _TYPES[mask.dtype],
+                         x.data_ptr(), *x.stride()[:3], offset.data_ptr(), *offset.stride()[:3],
+                         mask.data_ptr(), *mask.stride()[:3], taps.data_ptr(),
+                         b.data_ptr() if b is not None else None, out.data_ptr(),
+                         B, H, W, C, Cout, dg, padding, dilation, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deformConv2d launch failed: {lib.dcnErrorString(err).decode()}")
+    deformConv2d.launches += 1
+    return out
+
+
+deformConv2d.launches = 0
+
+
+class ModulatedDeformConvPack(nn.Module):
+    """DCNv2 with its offsets and mask predicted from ``feat`` (JAX
+    ``modulatedDeformConvPack`` ``deform.py:307``): ``conv_offset`` gives
+    3 dg 9 channels; the first 2 dg 9 are the offsets, read in place, and
+    the mask is the sigmoid of the rest.  Keys ``weight``, ``bias``,
+    ``conv_offset.*`` as the reference checkpoint's."""
+
+    def __init__(self, cin: int, cout: int, deformableGroups: int = 8):
+        super().__init__()
+        self.deformableGroups = deformableGroups
+        self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.conv_offset = nn.Conv2d(cin, deformableGroups * 3 * 9, 3, 1, 1)
+
+    def forward(self, x: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        """x, feat NHWC -> NHWC."""
+        out = self.conv_offset(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        n = 2 * self.deformableGroups * 9
+        return deformConv2d(x, out[..., :n], torch.sigmoid(out[..., n:]), self.weight, self.bias,
+                            self.deformableGroups)

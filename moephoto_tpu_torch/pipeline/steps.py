@@ -2,8 +2,8 @@
 
 A JSON list of ``{'op': ...}`` dicts compiles to a composed function plus
 a progress-Node list, as in the JAX package.  Ported ops: ``file``,
-``SR``, ``dehaze`` and ``output`` (image branch); the others raise
-``NotImplementedError``.
+``buffer``, ``SR``, ``dehaze``, ``slomo``, ``VSR`` and ``output``; the
+others raise ``NotImplementedError``.
 
 In-pipeline image representation: torch float32 HWC in [0, 1] on the
 compute device between steps; the ``output`` step copies to the host.
@@ -25,7 +25,7 @@ from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
-NOT_PORTED = {"DN", "resize", "VSR", "demob"}
+NOT_PORTED = {"DN", "resize", "demob"}
 videoOps = {"slomo", "VSR", "demob"}
 apply_ = lambda v, f: f(v)
 identity = lambda x, *_, **__: x
@@ -187,11 +187,17 @@ def procOutput(opt, out, *_):
 
 def procVideo(op):
     """Temporal step builders, resolved lazily so image-only runs never
-    import the temporal models.  Ported: ``slomo``."""
+    import the temporal models.  Ported: ``slomo``, ``VSR``."""
 
     def f(opt, out, *_):
         load = out["load"]
         fs, ns = convertChannel(out) if out["channel"] else ([], [])
+        if op == "VSR":
+            out["load"] = load * 16
+            ns.append(newNode(opt, dict(op="VSR", learn=0), load))
+            from moephoto_tpu_torch.models.iconvsr import doVSR
+
+            return fs + [doVSR], ns, out
         if op == "slomo":
             out["sf"] *= opt["sf"]
             node = newNode(opt, dict(op="slomo"), load, opt["sf"])
@@ -209,6 +215,10 @@ def _getOptVideo(op):
             from moephoto_tpu_torch.models import ifrnet
 
             return ifrnet.getOpt(opt)
+        if op == "VSR":
+            from moephoto_tpu_torch.models import iconvsr
+
+            return iconvsr.getOpt(opt)
         raise NotImplementedError(f"step op {op!r} is not ported yet")
 
     return f
@@ -235,6 +245,7 @@ procs: Dict[str, Callable] = dict(
     dehaze=procDehaze,
     output=procOutput,
     slomo=procVideo("slomo"),
+    VSR=procVideo("VSR"),
 )
 
 stepOpts = dict(
@@ -246,6 +257,7 @@ stepOpts = dict(
         "isEnabled": ["dedupe"],
         "getOpt": _getOptVideo("slomo"),
     },
+    VSR={"getOpt": _getOptVideo("VSR")},
 )
 
 

@@ -205,3 +205,38 @@ def synthIFRNetParams(size: str = "M", seed: int = 0) -> Dict[str, Dict[str, tor
         prelu(dec, pre + ".1.prelu", mid)
         convD(pre + ".2", mid, cout, 4, transpose=True, stride=2)
     return {"encoder": _torchDict(enc), "decoder": _torchDict(dec)}
+
+
+# conv_offset's gain over the damped draw: it sets the DCN offsets' spread
+# (see synthIconVSRParams)
+ICONVSR_OFFSET_GAIN = 240.0
+
+
+def synthIconVSRParams(seed: int = 0, numBlocks: int = 30) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A random IconVSR checkpoint as the reference stores it:
+    ``{module: state_dict}`` for spynet, edvr, both trunks (``numBlocks``
+    residual blocks each), both fusions and the upsampler, keys and shapes
+    those of ``models/iconvsr.IconVSR`` (the JAX package's ``edvrApply``,
+    ``_pcdAlign`` and ``_tsaFusion`` calls; its ``synthParams`` leaves
+    EDVR out).
+
+    Damped draws, as the JAX bench damps its random modules so that the PCD
+    cascade stays finite: every conv weight at half the 1/sqrt(fan-in)
+    scale, biases at 0.01.  The DCNs' ``conv_offset`` weights are
+    ``ICONVSR_OFFSET_GAIN`` times larger, so the offsets spread over a few
+    pixels: most under 1 px, some beyond 3 px (past the JAX package's
+    widest window tier)."""
+    from moephoto_tpu_torch.models.iconvsr import IconVSR
+
+    rng = np.random.RandomState(seed)
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, module in IconVSR(numBlocks).named_children():
+        p: Dict[str, np.ndarray] = {}
+        for k, v in module.state_dict().items():
+            if v.ndim == 4:
+                gain = 0.5 * (ICONVSR_OFFSET_GAIN if "conv_offset" in k else 1.0)
+                p[k] = (rng.randn(*v.shape) * gain / np.sqrt(v[0].numel())).astype(np.float32)
+            else:
+                p[k] = (0.01 * rng.randn(*v.shape)).astype(np.float32)
+        out[name] = _torchDict(p)
+    return out

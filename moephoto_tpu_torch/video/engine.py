@@ -54,9 +54,13 @@ padOp = {"VSR", "demob"}
 
 def _temporalWindow(op: str):
     """(lookback, lookahead) reference frames per temporal op
-    (video.py:37-38).  Ported: ``slomo``."""
+    (video.py:37-38).  Ported: ``slomo``, ``VSR``."""
     if op == "slomo":
         from moephoto_tpu_torch.models.ifrnet import RefTime
+
+        return RefTime >> 1, (RefTime - 1) >> 1
+    if op == "VSR":
+        from moephoto_tpu_torch.models.iconvsr import RefTime
 
         return RefTime >> 1, (RefTime - 1) >> 1
     raise NotImplementedError(f"temporal op {op!r} is not ported yet")

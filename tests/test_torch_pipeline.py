@@ -70,7 +70,7 @@ def test_unported_ops_raise(models):
     with pytest.raises(NotImplementedError, match="not ported"):
         genProcess([{"op": "file"}, {"op": "DN", "model": "lite5"}, {"op": "output"}])
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["video", "in.mkv", "out.mkv", "--steps", '[{"op": "VSR"}]'])
+        cli.main(["video", "in.mkv", "out.mkv", "--steps", '[{"op": "demob"}]'])
 
 
 def test_node_waits_for_device_result_before_timing(monkeypatch):

@@ -1,7 +1,8 @@
 """The port's video path (moephoto_tpu_torch/video/engine.py, the
 ``buffer`` and video ``output`` steps, ``cli video``) against the JAX
 package's: the same ffmpeg command lines and frame bookkeeping, bit-equal
-raw frame conversions, and a whole ``cli video`` slomo run through the
+raw frame conversions, the ``VSR`` step's window, geometry and progress
+nodes, and whole ``cli video`` slomo and VSR runs through the
 repository's fake ffmpeg (``tools/fakeffmpeg.py``) on the CPU."""
 
 import json
@@ -17,20 +18,25 @@ from moephoto_tpu.utils import imageio as jaxImageio
 from moephoto_tpu.video import engine as jaxEngine
 from moephoto_tpu_torch import cli
 from moephoto_tpu_torch.config import config
-from moephoto_tpu_torch.synth import synthIFRNetParams
+from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
+from moephoto_tpu_torch.synth import synthIconVSRParams, synthIFRNetParams
 from moephoto_tpu_torch.utils import imageio
 from moephoto_tpu_torch.video import engine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLOMO = {"op": "slomo", "model": "IFRNet S", "sf": 2}
+VSR = {"op": "VSR"}
 
 
 @pytest.fixture
 def video(tmp_path, monkeypatch):
-    """A synthetic IFRNet-S checkpoint in a modelDir both packages read, an
-    executable fake ffmpeg, the port on the CPU; configs restored after."""
+    """Synthetic IFRNet-S and IconVSR (2-block trunks) checkpoints in a
+    modelDir both packages read, an executable fake ffmpeg, the port on the
+    CPU; configs restored after."""
     (tmp_path / "IFRNet").mkdir()
     torch.save(synthIFRNetParams("S", 3), str(tmp_path / "IFRNet" / "IFRNet_S_GoPro.pth"))
+    (tmp_path / "vsr").mkdir()
+    torch.save(synthIconVSRParams(3, 2), str(tmp_path / vsrPath[len("model/"):]))
     ff = tmp_path / "ffmpeg"
     ff.write_text(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.join(ROOT, "tools", "fakeffmpeg.py")}" "$@"\n')
     ff.chmod(0o755)
@@ -42,8 +48,8 @@ def video(tmp_path, monkeypatch):
     return tmp_path
 
 
-def _chain(start, out):
-    return [{"op": "decode"}, {"op": "range", "start": start}, dict(SLOMO),
+def _chain(start, out, *steps):
+    return [{"op": "decode"}, {"op": "range", "start": start}, *[dict(s) for s in steps or (SLOMO,)],
             {"op": "output", "file": str(out), "frameRate": 10}]
 
 
@@ -101,8 +107,56 @@ def test_cli_video_slomo_through_fake_ffmpeg(video, monkeypatch):
 def test_unported_temporal_ops_raise(video):
     from moephoto_tpu_torch.pipeline.steps import genProcess
 
-    for op in ("VSR", "demob"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            genProcess([{"op": "buffer", "bitDepth": 16}, {"op": op}, {"op": "output"}])
     with pytest.raises(NotImplementedError, match="not ported"):
-        engine.lookbackOf("VSR")
+        genProcess([{"op": "buffer", "bitDepth": 16}, {"op": "demob"}, {"op": "output"}])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        engine.lookbackOf("demob")
+
+
+def test_vsr_window_matches_jax():
+    assert engine._temporalWindow("VSR") == jaxEngine._temporalWindow("VSR") == (3, 3)
+
+
+@pytest.mark.parametrize("start", [0, 2, 5])
+def test_vsr_bookkeeping_and_geometry_match_jax(video, start):
+    """prepare's reflection padding for the VSR step (a start before its 3
+    reference frames pads the rest) and planCommands' x4 geometry, alone
+    and after slomo, as JAX's."""
+    out = video / "out.mkv"
+    for steps in ((VSR,), (SLOMO, VSR)):
+        got = engine.prepare("in.mkv", "", _chain(start, out, *steps))
+        ref = jaxEngine.prepare("in.mkv", "", _chain(start, out, *steps))
+        assert {k: got[k] for k in ("start", "stop", "refs")} == {k: ref[k] for k in ("start", "stop", "refs")}
+        vsr, jaxVsr = got["sizes"][0]["opt"], ref["sizes"][0]["opt"]
+        for attr in ("start", "end", "outStart", "outEnd"):
+            assert getattr(vsr, attr) == getattr(jaxVsr, attr), attr
+        cmds = engine.planCommands(got, 64, 48, 10.0, 20, True)
+        assert cmds == jaxEngine.planCommands(ref, 64, 48, 10.0, 20, True)
+        assert "256x192" in cmds[1]
+
+
+def test_vsr_gen_process_matches_jax(video):
+    """genProcess with a VSR step: the same progress nodes (ops, loads,
+    totals) and the x16 load after it, as JAX's."""
+    from moephoto_tpu.pipeline.steps import genProcess as jaxGenProcess
+    from moephoto_tpu_torch.pipeline.steps import genProcess
+
+    steps = lambda: [{"op": "buffer", "bitDepth": 16}, dict(VSR), {"op": "output"}]
+    flat = lambda nodes: [(n.op, n.load, n.total, flat(n.nodes)) for n in nodes]
+    _, nodes = genProcess(steps())
+    _, jaxNodes = jaxGenProcess(steps())
+    assert flat(nodes) == flat(jaxNodes)
+    assert any(n.load == 16 for n in nodes[-1].nodes)
+
+
+def test_cli_video_vsr_through_fake_ffmpeg(video, monkeypatch):
+    """8 frames of 64x48 through decode -> buffer -> IconVSR x4 -> output
+    -> encode: 8 frames of 256x192x6 bytes reach the encoder."""
+    monkeypatch.setenv("FAKEFF_FRAMES", "8")
+    monkeypatch.setenv("FAKEFF_SIZE", "64x48")
+    out = video / "out.mkv"
+    path, frames = cli.runVideo(str(video / "in.mkv"), str(out), [dict(VSR)])
+    assert (path, frames) == (str(out), 8)
+    with open(path) as fp:
+        meta = json.load(fp)
+    assert meta == {"bytes": 8 * 256 * 192 * 6, "s": "256x192"}
