@@ -20,7 +20,12 @@ Phases, each printing one JSON line:
               fp32 (TF32 off), ragged shapes, dg 4 and 8, B = 1, Cout 96,
               16-byte and scalar corner loads, offsets up to 40 px, 1e6
               and NaN, offsets and mask read as strided slices of one
-              conv output
+              conv output; ailutTransformClamped (K5) at 1080p in and out
+              of range with differing channel ranges, B = 2 ragged, NaN
+              pixels, disjoint ranges (lo > hi), fp32 and bf16
+     parity   the kernel parity gate (tools/chipparity.py runAll and
+              assertAll): all five kernels against their plain versions on
+              the JAX gate's six cases, each launched once
   4. main     runs the CLI's image SR path (MoeNet_lite2 x4, bf16) on a
               seeded 1920x1080 PNG with seeded random weights, checks the
               7680x4320 output and the kernel launch count, and holds a
@@ -59,6 +64,18 @@ Phases, each printing one JSON line:
               (input Mpx/s, a profiled clip by kernel name) and K3 at
               each of its three shapes on the inputs the CLI run gave
               it, beside its bound and its plain version
+  9. dn       runs the CLI's image path on the denoise -> SR chain (DN
+              lite5 -> SR lite x4, bf16) on a seeded 1920x1080 PNG, checks
+              the 7680x4320 output and the 4 K1 launches; then on the image
+              steps of the reference's benchmark preset (SR lite x2 ->
+              resize 1280x720 -> DN lite5 -> SR a x2 -> dehaze) on a
+              seeded 1280x720 PNG, checks the 2560x1440 output; holds a
+              128x128 crop of NetDN, SEDN and MyNet x2 and the three
+              resize methods on the card in fp32 against the CPU; then
+              times DN lite5, DN 15 (SEDN), SR a x2 and the chain on a
+              device-resident 1080p image (Mpx/s by CUDA events, device
+              ms, idle share and top kernels from one profiled call), and
+              K5 alone at 1080p and at the gate's 32x64
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; with no CUDA device it
@@ -134,6 +151,18 @@ DCN_LEVELS = ("l3", "l2", "l1", "cas")  # call order within one EDVR call
 # trunks and recurrences whose warps and DCNs turn a coordinate difference
 # into a value difference times the local gradient
 VSR_TOL = 2e-3
+DN_CHAIN = [{"op": "DN", "model": "lite5"}, {"op": "SR", "model": "lite", "scale": 4}]
+PRESET_W, PRESET_H = 1280, 720
+PRESET = [{"scale": 2, "model": "lite", "ensemble": 0, "op": "SR"},
+          {"method": "bilinear", "width": PRESET_W, "height": PRESET_H, "op": "resize"},
+          {"model": "lite5", "op": "DN"},
+          {"scale": 2, "model": "a", "ensemble": 0, "op": "SR"},
+          {"op": "dehaze"}]
+# NetDN, SEDN and MyNet crops on the card vs the CPU, fp32, relative to
+# max(1, |cpu|): cuDNN's algorithms differ from the CPU's by ~1e-5 a layer,
+# through up to 50 conv layers (SEDN)
+DN_CROP_TOL = 1e-3
+RESIZE_TOL = 1e-5  # the same fp32 weights and sums on both devices, another order
 
 
 def emit(**kw):
@@ -310,20 +339,22 @@ def timing(seed, gpu):
 def resetCounts():
     from moephoto_tpu_torch.ops import deform
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
-    from moephoto_tpu_torch.ops.lut import ailutTransform
+    from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformClamped
     from moephoto_tpu_torch.ops.warp import warp
 
     fusedUpHeads.launches = ailutTransform.launches = warp.launches = deform.deformConv2d.launches = 0
+    ailutTransformClamped.launches = 0
 
 
 def readCounts():
     from moephoto_tpu_torch.ops import deform
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
-    from moephoto_tpu_torch.ops.lut import ailutTransform
+    from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformClamped
     from moephoto_tpu_torch.ops.warp import warp
 
     return {"fusedUpHeads": fusedUpHeads.launches, "ailutTransform": ailutTransform.launches,
-            "warp": warp.launches, "deformConv2d": deform.deformConv2d.launches}
+            "warp": warp.launches, "deformConv2d": deform.deformConv2d.launches,
+            "ailutTransformClamped": ailutTransformClamped.launches}
 
 
 def lutBound(img, lut, vertices):
@@ -1068,6 +1099,182 @@ def timingVsr(seed, gpu, pathInputs):
     return shapes["l1"]
 
 
+def checkLutClamped(seed):
+    """ailutTransformClamped (K5) against ailutTransformClampedPlain on the
+    card: NaN exactly where the plain version is NaN, every other value
+    within the tolerance (bit-equal is expected, as for K4)."""
+    from moephoto_tpu_torch.ops.lut import ailutTransformClamped, ailutTransformClampedPlain, clampRange
+
+    shifted = ((0.05, 0.9), (0.0, 1.0), (0.1, 0.95))  # common range [0.1, 0.9]
+    unit = ((0.0, 1.0),) * 3
+    cases = {  # B, h, w, image range, channel vertex ranges, NaN pixels
+        "1080p_in_range": (1, H, W, 0.0, 1.0, unit, False),
+        "1080p_clamped_differing_ranges": (1, H, W, -0.4, 1.5, shifted, False),
+        "B2_ragged_37x1001_nan": (2, 37, 1001, -0.2, 1.2, shifted, True),
+        "disjoint_ranges_33x99": (1, 33, 99, -0.4, 1.5, ((0.6, 1.0), (0.0, 1.0), (0.0, 0.4)), False),
+    }
+    errs, clamped = {}, {}
+    for i, (name, (B, h, w, lo, hi, ranges, nan)) in enumerate(cases.items()):
+        img, lut, vertices = lutCase(seed + 90 + i, B, h, w, lo, hi)
+        a = torch.tensor([r[0] for r in ranges], device="cuda")[None, :, None]
+        b = torch.tensor([r[1] for r in ranges], device="cuda")[None, :, None]
+        vertices = (a + (b - a) * vertices).contiguous()
+        if nan:
+            img[:, ::5, ::7, 1] = float("nan")
+        vlo, vhi = (t.reshape(-1, 1, 1, 1) for t in clampRange(vertices))
+        if name.startswith("disjoint") != bool((vlo > vhi).all()):
+            raise AssertionError(f"{name}: lo {vlo.flatten().tolist()}, hi {vhi.flatten().tolist()}")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = img.to(dtype)
+            got = ailutTransformClamped(x, lut, vertices)
+            want = ailutTransformClampedPlain(x, lut, vertices)
+            torch.cuda.synchronize()
+            isNan = torch.isnan(want)
+            key = f"{name}_{str(dtype)[6:]}"
+            if not torch.equal(torch.isnan(got), isNan) or bool(isNan.any()) != nan:
+                raise AssertionError(f"ailutTransformClamped NaNs differ from its plain version: {key}")
+            got, want = got.float()[~isNan], want.float()[~isNan]
+            diff = (got - want).abs()
+            tol = LUT_TOL * want.abs().clamp_min(1.0)
+            if dtype == torch.bfloat16:  # a sum near a rounding boundary may round the other way
+                tol = tol + 2.0**-7 * want.abs()
+            errs[key] = float(diff.max())
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"ailutTransformClamped disagrees with its plain version: {key} max {errs[key]}")
+        clamped[name] = float(((img < vlo) | (img > vhi)).float().mean())
+        del img, lut, vertices, got, want, diff
+    emit(phase="kernels", kernel="ailutTransformClamped", fp32_tol=f"{LUT_TOL}*max(1,|plain|)",
+         bf16_tol=f"{LUT_TOL}*max(1,|plain|)+2^-7*|plain|", max_abs_err=errs, share_clamped=clamped)
+    return max(v for k, v in errs.items() if k.endswith("float32"))
+
+
+def runParity():
+    """The kernel parity gate, as a user runs it: every kernel launched on
+    the gate's cases and held against its plain version."""
+    from moephoto_tpu_torch.tools import chipparity
+
+    resetCounts()
+    t0 = time.perf_counter()
+    results = chipparity.runAll()
+    seconds = time.perf_counter() - t0
+    launches = readCounts()
+    chipparity.assertAll(results)
+    want = {"fusedUpHeads": 1, "ailutTransform": 1, "warp": 2, "deformConv2d": 1, "ailutTransformClamped": 1}
+    if launches != want or len(results) != 6:
+        raise AssertionError(f"parity gate launched {launches}, want {want}; keys {list(results)}")
+    emit(phase="parity", max_abs_err=results, tolerances=chipparity.TOLERANCES, launches=launches, seconds=seconds)
+    return launches["ailutTransformClamped"], results["ailutTransformPallas"]
+
+
+def runImageChain(name, steps, size, outSize, seed, work, wantK1):
+    """One ``cli image`` run on the card in bf16, PNG to PNG."""
+    from PIL import Image
+
+    from moephoto_tpu_torch import cli
+
+    w, h = size
+    src, dst = os.path.join(work, f"{name}_in.png"), os.path.join(work, f"{name}_out.png")
+    Image.fromarray(np.random.RandomState(seed).randint(0, 256, (h, w, 3), dtype=np.uint8)).save(src)
+    resetCounts()
+    t0 = time.perf_counter()
+    cli.runImage(src, dst, steps)
+    seconds = time.perf_counter() - t0
+    launches = readCounts()
+    with Image.open(dst) as out:
+        got, mode = out.size, out.mode
+        arr = np.asarray(out)
+    if got != outSize or mode != "RGB" or not arr.std() > 0:
+        raise AssertionError(f"{name}: output {got} {mode} std {arr.std()}, want {outSize} RGB")
+    if launches["fusedUpHeads"] != wantK1 or sum(launches.values()) != wantK1:
+        raise AssertionError(f"{name} launched {launches}, want {wantK1} fusedUpHeads and nothing else")
+    emit(phase=name, steps=steps, input=[h, w, 3], output=list(arr.shape), seconds=seconds, launches=launches,
+         output_mean=float(arr.mean()), output_std=float(arr.std()))
+    return launches["fusedUpHeads"]
+
+
+def checkDnCrop(seed):
+    """A 128x128 crop through ModelExec for NetDN, SEDN and MyNet x2, and
+    the three resize methods on a 270x480 image, on the card in fp32
+    against the CPU, same weights."""
+    from moephoto_tpu_torch.engine.executor import ModelExec
+    from moephoto_tpu_torch.models import api, sr
+    from moephoto_tpu_torch.pipeline.registry import DN_REGISTRY, SR_REGISTRY
+    from moephoto_tpu_torch.synth import synthMyNetParams, synthNetDNParams, synthSEDNParams
+
+    x = torch.from_numpy(np.random.RandomState(seed + 7).rand(128, 128, 3).astype(np.float32))
+    report = {}
+    for name, make, sd, entry in (("netDN", sr.netDN, synthNetDNParams(seed), DN_REGISTRY["lite5"]),
+                                  ("sedn", sr.sedn, synthSEDNParams(seed), DN_REGISTRY["15"]),
+                                  ("net2x", sr.net2x, synthMyNetParams(2, seed), SR_REGISTRY["a2"])):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            model = make()
+            model.load_state_dict(sd, strict=True)
+            ex = ModelExec(model.to(dev).eval(), entry["spec"], channelSplit=True, dtype=torch.float32, device=dev)
+            outs.append(ex(x).cpu())
+        err = (outs[0] - outs[1]).abs()
+        if not (bool((err <= DN_CROP_TOL * outs[1].abs().clamp_min(1.0)).all()) and torch.isfinite(outs[0]).all()):
+            raise AssertionError(f"{name} crop on the card differs from the CPU by {float(err.max())}")
+        report[name] = {"shape": list(outs[0].shape), "max_abs_err": float(err.max()),
+                        "cpu_std": float(outs[1].std())}
+    y = torch.from_numpy(np.random.RandomState(seed + 8).rand(1, 270, 480, 3).astype(np.float32))
+    resizes = {}
+    for name, fn in (("bilinear", api.resizeBilinear), ("nearest", api.resizeNearest), ("bicubic", api.resizeCubic)):
+        for h, w in ((405, 720), (181, 321)):
+            err = float((fn(y.cuda(), h, w).cpu() - fn(y, h, w)).abs().max())
+            if not err <= RESIZE_TOL:
+                raise AssertionError(f"resize {name} to {h}x{w} on the card differs from the CPU by {err}")
+            resizes[f"{name}_{h}x{w}"] = err
+    emit(phase="dn_crop", tol=f"{DN_CROP_TOL}*max(1,|cpu|)", models=report, resize_tol=RESIZE_TOL, resizes=resizes)
+
+
+def timingDn(seed, gpu):
+    """Mpx/s of DN lite5, DN 15 (SEDN), SR a x2 and the DN lite5 -> SR lite
+    x4 chain on a device-resident 1080p image (bf16, CUDA events after
+    warm-up), each with one profiled call; then K5 alone at 1080p and at
+    the parity gate's 32x64, beside its plain version and its bound."""
+    from moephoto_tpu_torch.ops.lut import ailutTransformClamped, ailutTransformClampedPlain
+    from moephoto_tpu_torch.pipeline import registry
+
+    dn = registry.getDN({"model": "lite5"})  # built by the CLI runs
+    sedn = registry.getDN({"model": "15"})
+    a2 = registry.getSR({"model": "a", "scale": 2})
+    lite4 = registry.getSR({"model": "lite", "scale": UPSCALE})
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((H, W, 3), generator=g, device="cuda")
+    paths = {"DN_lite5": (lambda: dn(x), ITERS), "DN_15_sedn": (lambda: sedn(x), 3), "SR_a_x2": (lambda: a2(x), ITERS),
+             "chain_DN_lite5_SR_lite_x4": (lambda: lite4(dn(x)), ITERS)}
+    report = {}
+    for name, (fn, iters) in paths.items():
+        for _ in range(WARMUP):
+            fn()
+        ms = cudaTimeMs(fn, iters)
+        resetCounts()
+        wallMs, rows = profileOnce(fn)
+        deviceMs = sum(t for _, t in rows)
+        report[name] = {"mpx_per_s": (H * W / 1e6) / (ms / 1e3), "ms_per_image": ms, "iters": iters,
+                        "profiled_wall_ms": wallMs, "profiled_device_ms": deviceMs,
+                        "device_idle_share": (1 - deviceMs / wallMs) if wallMs else None,
+                        "profiled_launches": {k: v for k, v in readCounts().items() if v},
+                        "top_kernels": [{"name": k[:80], "ms": t} for k, t in rows[:8]]}
+    emit(phase="dn_timing", gpu=gpu, input=[H, W, 3], dtype="bfloat16", warmup=WARMUP, paths=report)
+
+    shapes = {}
+    for name, (h, w) in (("gate_32x64", (32, 64)), ("1080p", (H, W))):
+        img, lut, vertices = lutCase(seed + 95, 1, h, w, -0.4, 1.5)
+        vertices = (0.1 + 0.8 * vertices).contiguous()  # common range [0.1, 0.9]: the clamp bites
+        wrapperMs = cudaTimeMs(lambda: ailutTransformClamped(img, lut, vertices), ITERS)
+        plainMs = cudaTimeMs(lambda: ailutTransformClampedPlain(img, lut, vertices), 3)
+        _, rows = profileOnce(lambda: [ailutTransformClamped(img, lut, vertices) for _ in range(ITERS)])
+        kMs = sum(t for k, t in rows if "ailutKernel" in k) / ITERS
+        bound, boundBy = lutBound(img, lut, vertices)
+        shapes[name] = dict(shape=list(img.shape), ms=kMs, wrapper_ms=wrapperMs, plain_ms=plainMs, bound_ms=bound,
+                            bound_by=boundBy, gbytes_per_s=(2 * img.numel() * 4) / (kMs / 1e3) / 1e9)
+    emit(phase="kernel_timing", gpu=gpu, kernel="ailutTransformClamped", D=33, by_shape=shapes,
+         library="none: F.grid_sample samples uniform grids only")
+    return shapes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1079,8 +1286,11 @@ def main(argv=None) -> int:
     from moephoto_tpu_torch.config import config
     from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
     from moephoto_tpu_torch.ops import _build, deform, fusedup, lut, warp
+    from moephoto_tpu_torch.engine.tiling import planAxis
+    from moephoto_tpu_torch.pipeline.registry import SR_REGISTRY
     from moephoto_tpu_torch.synth import (synthAiLUTParams, synthAODParams, synthIconVSRParams, synthIFRNetParams,
-                                          synthLite2Params, synthSunParams)
+                                          synthLite2Params, synthMyNetParams, synthNetDNParams, synthSEDNParams,
+                                          synthSunParams)
 
     # fp32 comparisons run in true fp32: cuDNN would run fp32 convs in TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -1104,6 +1314,13 @@ def main(argv=None) -> int:
     lutErr = checkLut(args.seed)
     warpErr = checkWarp(args.seed)
     dcnErr = checkDcn(args.seed)
+    clampErr = checkLutClamped(args.seed)
+    clampLaunches, clampGateErr = runParity()
+
+    def liteLaunches(w, h, scale):  # fusedUpHeads launches of one lite image: its tile chunks
+        spec = SR_REGISTRY[f"lite{scale}"]["spec"]
+        tiles = len(planAxis(h, spec.tile, spec.pad)) * len(planAxis(w, spec.tile, spec.pad))
+        return -(-tiles // spec.batch)
 
     config.device, config.bf16 = "cuda", True
     with tempfile.TemporaryDirectory() as work:
@@ -1112,7 +1329,11 @@ def main(argv=None) -> int:
                               ("dehaze", "AOD_net_epoch_relu_10.pth", synthAODParams(args.seed)),
                               ("AiLUT", "AiLUT-FiveK-sRGB.pth", synthAiLUTParams("tpami", 3, args.seed)),
                               ("IFRNet", "IFRNet_GoPro.pth", synthIFRNetParams("M", args.seed)),
-                              ("vsr", os.path.basename(vsrPath), synthIconVSRParams(args.seed, VSR_BLOCKS))):
+                              ("vsr", os.path.basename(vsrPath), synthIconVSRParams(args.seed, VSR_BLOCKS)),
+                              ("lite", "model.pth", synthLite2Params(2, args.seed)),
+                              ("dn_lite5", "model_new.pth", synthNetDNParams(args.seed)),
+                              ("l15", "model_new.pth", synthSEDNParams(args.seed)),
+                              ("a2", "model_new.pth", synthMyNetParams(2, args.seed))):
             os.makedirs(os.path.join(work, sub), exist_ok=True)
             torch.save(sd, os.path.join(work, sub, name))
         config.modelDir, config.opsPath, config.ffmpegPath = work, os.path.join(work, "ops.json"), fakeFfmpeg(work)
@@ -1129,6 +1350,12 @@ def main(argv=None) -> int:
         dcnLaunches, dcnInputs = runVsr(work)
         checkVsrCrop(args.seed)
         dt = timingVsr(args.seed, smi, dcnInputs)
+        runImageChain("dn_chain", DN_CHAIN, (W, H), (W * UPSCALE, H * UPSCALE), args.seed + 9, work,
+                      liteLaunches(W, H, UPSCALE))
+        runImageChain("preset", PRESET, (PRESET_W, PRESET_H), (2 * PRESET_W, 2 * PRESET_H), args.seed + 10, work,
+                      liteLaunches(PRESET_W, PRESET_H, 2))
+        checkDnCrop(args.seed)
+        ct = timingDn(args.seed, smi)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
@@ -1150,6 +1377,14 @@ def main(argv=None) -> int:
         "replaces": "moephoto_tpu/ops/dcnkernel.py:184", "launches": dcnLaunches,
         "max_abs_err": dcnErr, "ms": dt["ms"], "plain_ms": dt["plain_ms"],
         "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"], "library_ms": None,
+    }, {  # launched by the parity gate only; timed at the gate's shape, and at 1080p beside it
+        "name": "ailutTransformClamped", "route": "cuda", "source": "moephoto_tpu_torch/csrc/ailut.cu",
+        "replaces": "moephoto_tpu/ops/lutkernel.py:322", "launches": clampLaunches,
+        "max_abs_err": max(clampErr, clampGateErr), "ms": ct["gate_32x64"]["ms"],
+        "plain_ms": ct["gate_32x64"]["plain_ms"], "bound_ms": ct["gate_32x64"]["bound_ms"],
+        "bound_by": ct["gate_32x64"]["bound_by"], "library_ms": None,
+        "ms_1080p": ct["1080p"]["ms"], "plain_ms_1080p": ct["1080p"]["plain_ms"],
+        "bound_ms_1080p": ct["1080p"]["bound_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,19 @@
 // The ragged tail of the pixel range is masked; the batch runs on
 // gridDim.y.  Images are fp32 or bf16, computed in fp32, written back in
 // the image's type.
+//
+// The Clamp instance replaces the TPU's other AiLUT kernel,
+// moephoto_tpu/ops/lutkernel.py:322 ailutTransformPallas (Pallas body
+// _lutKernel :58), which only the kernel parity gate runs.  That body is
+// hat weights, 0/1 expansion products and a (T, D^2) x (D^2, C D) bf16
+// product, again because Mosaic cannot gather; its function is the lookup
+// above on r, g, b clipped to one range per image, lo = max of the three
+// first vertices, hi = min of the three last.  Here each block takes lo
+// and hi from the vertex rows it already holds in shared memory and clips
+// as min(max(x, lo), hi) with comparisons, not fmaxf/fminf: a NaN pixel
+// stays NaN, and lo > hi gives hi, as torch.clamp and the plain version
+// (ailutTransformClampedPlain).  Same bytes, a few comparisons more: the
+// bound is the extrapolating kernel's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +77,7 @@ __device__ __forceinline__ float4 madd4(float4 acc, float w, float4 c) {
   return acc;
 }
 
-template <typename T>
+template <typename T, bool Clamp>
 __global__ void __launch_bounds__(kThreads)
 ailutKernel(const T* __restrict__ img, const float4* __restrict__ lut,
             const float* __restrict__ vertices, T* __restrict__ out, long long N, int D) {
@@ -76,11 +89,20 @@ ailutKernel(const T* __restrict__ img, const float4* __restrict__ lut,
   if (p >= N) return;
 
   const long long px = ((long long)b * N + p) * 3;
+  float lo = 0.0f, hi = 0.0f;
+  if (Clamp) {
+    lo = fmaxf(fmaxf(vert[0], vert[D]), vert[2 * D]);
+    hi = fminf(fminf(vert[D - 1], vert[2 * D - 1]), vert[3 * D - 1]);
+  }
   int id[3];
   float f[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float x = loadF(img + px + c);
+    float x = loadF(img + px + c);
+    if (Clamp) {  // min(max(x, lo), hi); every comparison with NaN is false, so NaN passes
+      x = (x < lo) ? lo : x;
+      x = (x > hi) ? hi : x;
+    }
     const float* v = vert + c * D;
     const int i0 = min(max(lowerBound(v, D, x) - 1, 0), D - 2);
     const float v0 = v[i0], v1 = v[i0 + 1];
@@ -110,14 +132,14 @@ ailutKernel(const T* __restrict__ img, const float4* __restrict__ lut,
   storeF(out + px + 2, acc.z);
 }
 
-template <typename T>
+template <typename T, bool Clamp>
 int launch(const void* img, const void* lut4, const void* vertices, void* out, long long N, int D,
            int B, void* stream) {
   if (D < 2 || D > kMaxD || B < 1 || B > 65535 || N < 0) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   const long long blocks = (N + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ailutKernel<T><<<dim3((unsigned)blocks, (unsigned)B), kThreads, 0, (cudaStream_t)stream>>>(
+  ailutKernel<T, Clamp><<<dim3((unsigned)blocks, (unsigned)B), kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)img, (const float4*)lut4, (const float*)vertices, (T*)out, N, D);
   return cudaGetLastError();
 }
@@ -130,12 +152,23 @@ extern "C" {
 // vertices: (B, 3, D) fp32, sorted along D.
 int ailutTransformF32(const void* img, const void* lut4, const void* vertices, void* out,
                       long long N, int D, int B, void* stream) {
-  return launch<float>(img, lut4, vertices, out, N, D, B, stream);
+  return launch<float, false>(img, lut4, vertices, out, N, D, B, stream);
 }
 
 int ailutTransformBF16(const void* img, const void* lut4, const void* vertices, void* out,
                        long long N, int D, int B, void* stream) {
-  return launch<__nv_bfloat16>(img, lut4, vertices, out, N, D, B, stream);
+  return launch<__nv_bfloat16, false>(img, lut4, vertices, out, N, D, B, stream);
+}
+
+// The same on the image clipped to [max_c v_c[0], min_c v_c[D-1]].
+int ailutTransformClampedF32(const void* img, const void* lut4, const void* vertices, void* out,
+                             long long N, int D, int B, void* stream) {
+  return launch<float, true>(img, lut4, vertices, out, N, D, B, stream);
+}
+
+int ailutTransformClampedBF16(const void* img, const void* lut4, const void* vertices, void* out,
+                              long long N, int D, int B, void* stream) {
+  return launch<__nv_bfloat16, true>(img, lut4, vertices, out, N, D, B, stream);
 }
 
 const char* ailutErrorString(int e) { return cudaGetErrorString((cudaError_t)e); }

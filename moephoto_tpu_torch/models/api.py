@@ -85,6 +85,61 @@ def resizeBilinear(x: torch.Tensor, h: int, w: int, align_corners: bool = False)
     return y.permute(0, 2, 3, 1)
 
 
+def resizeNearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest resize of NHWC to (h, w), sampling at half-pixel centres as
+    ``jax.image.resize(method="nearest")``: source index
+    floor((i + 0.5) * in / out), in fp32.  (``F.interpolate``'s ``nearest``
+    samples at floor(i * in / out), another pixel at non-integer ratios.)"""
+    for dim, n in ((-3, h), (-2, w)):
+        m = x.shape[dim]
+        if m != n:
+            idx = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n).floor().long()
+            x = x.index_select(dim % x.ndim, idx.clamp_(max=m - 1))
+    return x
+
+
+def cubicWeights(inSize: int, outSize: int, device=None) -> torch.Tensor:
+    """(inSize, outSize) fp32 weights of ``jax.image.resize``'s ``cubic``
+    along one axis: the Keys kernel (a = -0.5) at half-pixel centres,
+    widened by in/out when shrinking (antialiasing, JAX's default), each
+    output's weights divided by their sum, so the border renormalises
+    instead of replicating the edge pixel."""
+    f32 = torch.float32
+    inv = 1.0 / torch.tensor(outSize / inSize, dtype=f32, device=device)
+    sample = (torch.arange(outSize, dtype=f32, device=device) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(inSize, dtype=f32, device=device)[:, None]).abs() / inv.clamp_min(1.0)
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = torch.where(x >= 2.0, torch.zeros((), device=device), w)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    return torch.where(((sample >= -0.5) & (sample <= inSize - 0.5))[None, :], w, 0.0)
+
+
+def resizeCubic(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Cubic resize of NHWC to (h, w) as ``jax.image.resize(x, shape,
+    "cubic")``: two separable fp32 weight matrices (:func:`cubicWeights`),
+    an axis of unchanged size left alone.  (``F.interpolate``'s ``bicubic``
+    has a = -0.75 and replicates the border.)"""
+    y = x.float()
+    if y.shape[-3] != h:
+        y = torch.einsum("...hwc,hk->...kwc", y, cubicWeights(y.shape[-3], h, x.device))
+    if y.shape[-2] != w:
+        y = torch.einsum("...hwc,wk->...hkc", y, cubicWeights(y.shape[-2], w, x.device))
+    return y.to(x.dtype)
+
+
+class ScaleLayer(torch.nn.Module):
+    """Learned scalar multiplier (key ``scale``; reference ``ScaleLayer``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale.to(x.dtype)
+
+
 def leakyRelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 

@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from moephoto_tpu_torch.models.api import globalAvgPool
+from moephoto_tpu_torch.models.api import ScaleLayer, globalAvgPool, prelu
 
 
 class FRM(nn.Module):
@@ -23,6 +23,42 @@ class FRM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         return x * torch.sigmoid(self.conv_du(globalAvgPool(x)))
+
+
+class _ARSBBody(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv_1 = nn.Conv2d(c, c, 3, padding=1, bias=False)
+        self.relu = nn.PReLU()
+        self.conv_2 = nn.Conv2d(c, c, 3, padding=1, bias=False)
+        self.scale = ScaleLayer()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.scale(self.conv_2(prelu(self.conv_1(x), self.relu.weight)))
+
+
+class ARSB(nn.Sequential):
+    """Automatic residual scaling block (JAX ``arsb``): conv -> PReLU ->
+    conv -> learned scalar, plus the input.  The reference's Residual
+    wrapper registers its body as module ``0``, so the keys are
+    ``0.conv_1/relu/conv_2`` and ``0.scale.scale``.  Runs on NCHW."""
+
+    def __init__(self, c: int):
+        super().__init__(_ARSBBody(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self[0](x)
+
+
+class UpsampleBlock(nn.Sequential):
+    """conv 3x3 to r^2 c -> PixelShuffle(r) -> PReLU (JAX
+    ``upsampleBlock``); keys ``0`` and ``2``.  Runs on NCHW."""
+
+    def __init__(self, c: int, r: int):
+        super().__init__(nn.Conv2d(c, c * r * r, 3, padding=1), nn.PixelShuffle(r), nn.PReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return prelu(self[1](self[0](x)), self[2].weight)
 
 
 class ResidualBlockNoBN(nn.Module):

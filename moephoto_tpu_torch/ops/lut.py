@@ -10,6 +10,20 @@ sorted vertex row, then the 8-corner trilinear read of the LUT.  On a CPU
 tensor the wrapper runs :func:`ailutTransformPlain`, which computes the
 same function with the same fp32 operations in the same order.
 
+:func:`ailutTransformClamped` replaces the JAX package's other AiLUT
+kernel (``moephoto_tpu/ops/lutkernel.py:322`` ``ailutTransformPallas``,
+body ``_lutKernel`` :58), which no model calls but the on-chip kernel
+parity gate does (``tools/chipparity.py``): it clips r, g and b to one
+range per image, lo = max of the three first vertices and hi = min of the
+three last, as ``min(max(x, lo), hi)`` (so a NaN pixel stays NaN and
+lo > hi gives hi), and then does exactly the lookup above.  Inside
+[lo, hi] the two functions agree; outside, this one holds the edge value
+where :func:`ailutTransform` extrapolates.  Same kernel source, its own
+entry points, plain version (:func:`ailutTransformClampedPlain`) and
+launch count.  Vertices are finite and strictly increasing: the TPU body
+divides by v[i] - v[i-1] with no epsilon and gives NaN on equal
+neighbours, where this lookup stays finite.
+
 Semantics (the reference kernel and the JAX package's XLA transform):
 bin = clip(#{v < x} - 1, 0, D - 2), fraction (x - v0) / (v1 - v0 + 1e-10)
 left unclamped, so a value outside [v[0], v[D-1]] extrapolates linearly
@@ -76,16 +90,73 @@ def ailutTransformPlain(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Te
     return out.permute(0, 2, 1).reshape(B, H, W, C).to(img.dtype)
 
 
+def clampRange(vertices: torch.Tensor):
+    """Per image the range all three channels share: lo = max of the first
+    vertices, hi = min of the last, each (B,) fp32."""
+    v = vertices.float()
+    return v[:, :, 0].max(dim=1).values, v[:, :, -1].min(dim=1).values
+
+
+def ailutTransformClampedPlain(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    """Torch-op version of the clamping kernel: the image clipped in fp32
+    to :func:`clampRange` as min(max(x, lo), hi), then
+    :func:`ailutTransformPlain`; returned in ``img``'s dtype."""
+    lo, hi = (t.reshape(-1, 1, 1, 1) for t in clampRange(vertices))
+    x = torch.minimum(torch.maximum(img.float(), lo), hi)
+    return ailutTransformPlain(x, lut, vertices).to(img.dtype)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         args = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        for fn in (lib.ailutTransformF32, lib.ailutTransformBF16):
+        for fn in (lib.ailutTransformF32, lib.ailutTransformBF16,
+                   lib.ailutTransformClampedF32, lib.ailutTransformClampedBF16):
             fn.argtypes, fn.restype = args, ctypes.c_int
         lib.ailutErrorString.argtypes = [ctypes.c_int]
         lib.ailutErrorString.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _onCard(name: str, img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    """Check the tensors and launch the entry point ``name`` + F32/BF16;
+    raises on anything the kernel does not take."""
+    tensors = (img, lut, vertices)
+    if not (img.is_cuda and lut.device == img.device and vertices.device == img.device):
+        raise ValueError(f"{name}: img on {img.device}, lut on {lut.device}, "
+                         f"vertices on {vertices.device}")
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes an fp32 or bf16 image, got {img.dtype}")
+    if lut.dtype != torch.float32 or vertices.dtype != torch.float32:
+        raise TypeError(f"{name} takes an fp32 lut and vertices, got {lut.dtype}/{vertices.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if img.ndim != 4 or img.shape[-1] != 3:
+        raise ValueError(f"{name}: image shape {tuple(img.shape)}, want (B, H, W, 3)")
+    B, H, W, _ = img.shape
+    D = lut.shape[-1]
+    if lut.shape != (B, 3, D, D, D) or vertices.shape != (B, 3, D):
+        raise ValueError(f"{name}: lut {tuple(lut.shape)}, vertices {tuple(vertices.shape)} "
+                         f"for a batch of {B}")
+    if not 2 <= D <= MAX_D:
+        raise ValueError(f"{name}: D={D} not in 2..{MAX_D}")
+    out = torch.empty_like(img)
+    if img.numel() == 0:
+        return out
+    # channel-last, padded to 4: each corner is one aligned 16-byte read
+    lut4 = F.pad(lut.permute(0, 2, 3, 4, 1), (0, 1)).contiguous()
+    lib = _library()
+    fn = getattr(lib, name + ("BF16" if img.dtype == torch.bfloat16 else "F32"))
+    err = fn(img.data_ptr(), lut4.data_ptr(), vertices.data_ptr(), out.data_ptr(), H * W, D, B,
+             torch.cuda.current_stream(img.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.ailutErrorString(err).decode()}")
+    return out
+
+
+def _allOnCpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def ailutTransform(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
@@ -95,40 +166,28 @@ def ailutTransform(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor)
     (B, 3, D) fp32, all contiguous.  CPU tensors take
     :func:`ailutTransformPlain`; CUDA tensors launch the kernel or raise.
     """
-    tensors = (img, lut, vertices)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _allOnCpu(img, lut, vertices):
         return ailutTransformPlain(img, lut, vertices)
-    if not (img.is_cuda and lut.device == img.device and vertices.device == img.device):
-        raise ValueError(f"ailutTransform: img on {img.device}, lut on {lut.device}, "
-                         f"vertices on {vertices.device}")
-    if img.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ailutTransform takes an fp32 or bf16 image, got {img.dtype}")
-    if lut.dtype != torch.float32 or vertices.dtype != torch.float32:
-        raise TypeError(f"ailutTransform takes an fp32 lut and vertices, got {lut.dtype}/{vertices.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ailutTransform takes contiguous tensors")
-    if img.ndim != 4 or img.shape[-1] != 3:
-        raise ValueError(f"ailutTransform: image shape {tuple(img.shape)}, want (B, H, W, 3)")
-    B, H, W, _ = img.shape
-    D = lut.shape[-1]
-    if lut.shape != (B, 3, D, D, D) or vertices.shape != (B, 3, D):
-        raise ValueError(f"ailutTransform: lut {tuple(lut.shape)}, vertices {tuple(vertices.shape)} "
-                         f"for a batch of {B}")
-    if not 2 <= D <= MAX_D:
-        raise ValueError(f"ailutTransform: D={D} not in 2..{MAX_D}")
-    out = torch.empty_like(img)
-    if img.numel() == 0:
-        return out
-    # channel-last, padded to 4: each corner is one aligned 16-byte read
-    lut4 = F.pad(lut.permute(0, 2, 3, 4, 1), (0, 1)).contiguous()
-    lib = _library()
-    fn = lib.ailutTransformBF16 if img.dtype == torch.bfloat16 else lib.ailutTransformF32
-    err = fn(img.data_ptr(), lut4.data_ptr(), vertices.data_ptr(), out.data_ptr(), H * W, D, B,
-             torch.cuda.current_stream(img.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ailutTransform launch failed: {lib.ailutErrorString(err).decode()}")
-    ailutTransform.launches += 1
+    out = _onCard("ailutTransform", img, lut, vertices)
+    if out.numel():
+        ailutTransform.launches += 1
     return out
 
 
 ailutTransform.launches = 0
+
+
+def ailutTransformClamped(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    """Apply an adaptive 3D LUT to the image clipped to the vertex range
+    all channels share: shapes and types as :func:`ailutTransform`.  CPU
+    tensors take :func:`ailutTransformClampedPlain`; CUDA tensors launch
+    the kernel or raise."""
+    if _allOnCpu(img, lut, vertices):
+        return ailutTransformClampedPlain(img, lut, vertices)
+    out = _onCard("ailutTransformClamped", img, lut, vertices)
+    if out.numel():
+        ailutTransformClamped.launches += 1
+    return out
+
+
+ailutTransformClamped.launches = 0

@@ -2,15 +2,19 @@
 
 Same model keys and checkpoint file layout as the JAX package's
 registry; each entry resolves to a :class:`ModelExec` with a static
-:class:`TileSpec`.  Ported so far: the MoeNet_lite2 SR entries, and of the
-dehaze registry AOD (``dehaze``), ``sun`` and the three AiLUT entries;
-the other dehaze keys raise ``NotImplementedError``.  Temporal models
-(``models/ifrnet.py``) load through :func:`modelPath` in their own
-``getOpt``, as in the JAX package.
+:class:`TileSpec`.  Ported: of the SR registry MoeNet_lite2
+(``lite2/4/8``) and MyNet (``a2/a3/a4``, ``p2/p3/p4``); of the DN registry
+SEDN (``15/25/50``) and NetDN (``lite5/10/15``); of the dehaze registry AOD
+(``dehaze``), ``sun`` and the three AiLUT entries.  The keys in
+``SR_NOT_PORTED``, ``DN_NOT_PORTED`` and ``DEHAZE_NOT_PORTED`` raise
+``NotImplementedError`` naming the ROADMAP item they wait for (A7: RRDB,
+ImageCleaning, the moire models, NAFNet, MPRNet).  Temporal models
+(``models/ifrnet.py``, ``models/iconvsr.py``) load through
+:func:`modelPath` in their own ``getOpt``, as in the JAX package.
 
-The lite entries run unpacked (``channelSplit``, no plane packing).
+The Y-channel entries run unpacked (``channelSplit``, no plane packing).
 Packing exists in the JAX package to fill the TPU's 128-lane matrix unit
-with a 48-channel trunk; on the GPU its block-diagonal weights only
+with a 48- or 64-channel trunk; on the GPU its block-diagonal weights only
 double the trunk's FLOPs.
 """
 
@@ -79,12 +83,32 @@ def _normalize05(x):
 # --- SR registry ----------------------------------------------------------
 _SPEC_LITE = lambda sc: TileSpec(tile=256, pad=5, align=8, scale=sc, batch=10 if sc <= 4 else 2)
 
+_SPEC_Y_SR = lambda sc: TileSpec(tile=256, pad=9 if sc == 3 else 5, align=8, scale=sc, batch=8 if sc <= 2 else 4)
+
 SR_REGISTRY = {
+    "a2": _entry("sr", "net2x", "model/a2/model_new.pth", _SPEC_Y_SR(2), channelSplit=True),
+    "a3": _entry("sr", "net3x", "model/a3/model_new.pth", _SPEC_Y_SR(3), channelSplit=True),
+    "a4": _entry("sr", "net4x", "model/a4/model_new.pth", _SPEC_Y_SR(4), channelSplit=True),
+    "p2": _entry("sr", "net2x", "model/p2/model_new.pth", _SPEC_Y_SR(2), channelSplit=True),
+    "p3": _entry("sr", "net3x", "model/p3/model_new.pth", _SPEC_Y_SR(3), channelSplit=True),
+    "p4": _entry("sr", "net4x", "model/p4/model_new.pth", _SPEC_Y_SR(4), channelSplit=True),
     "lite2": _entry("sr", "moeNetLite2x2", "model/lite/model.pth", _SPEC_LITE(2), channelSplit=True),
     "lite4": _entry("sr", "moeNetLite2x4", "model/lite/model_4.pth", _SPEC_LITE(4), channelSplit=True),
     "lite8": _entry("sr", "moeNetLite2x8", "model/lite/model_8.pth", _SPEC_LITE(8), channelSplit=True),
 }
+SR_NOT_PORTED = {"gan2", "gan4", "gana4"}  # RRDB: ROADMAP A7
 
+# --- DN registry ----------------------------------------------------------
+_SPEC_DN = TileSpec(256, 7, 8, 1.0, 8)
+DN_REGISTRY = {
+    "15": _entry("sr", "sedn", "model/l15/model_new.pth", _SPEC_DN, channelSplit=True),
+    "25": _entry("sr", "sedn", "model/l25/model_new.pth", _SPEC_DN, channelSplit=True),
+    "50": _entry("sr", "sedn", "model/l50/model_new.pth", _SPEC_DN, channelSplit=True),
+    "lite5": _entry("sr", "netDN", "model/dn_lite5/model_new.pth", _SPEC_DN, channelSplit=True),
+    "lite10": _entry("sr", "netDN", "model/dn_lite10/model_new.pth", _SPEC_DN, channelSplit=True),
+    "lite15": _entry("sr", "netDN", "model/dn_lite15/model_new.pth", _SPEC_DN, channelSplit=True),
+}
+DN_NOT_PORTED = {"MPRNet_denoising", "NAFNet_32", "NAFNet_64", "VSR_Cleaning"}  # ROADMAP A7
 
 # --- dehaze / deblur / derain / demoire / retouch -------------------------
 _sunConvT = lambda k, s: s[2] == 4
@@ -101,7 +125,7 @@ DEHAZE_REGISTRY = {
                            TileSpec(256, 8, 8, 1.0, 1), fp32=True, noTile=True),
 }
 DEHAZE_NOT_PORTED = {"moire_obj", "moire_screen_gan", "MPRNet_deblurring", "MPRNet_deraining",
-                     "NAFNet_deblur_32", "NAFNet_deblur_64", "NAFNet_deblur_JPEG_64"}
+                     "NAFNet_deblur_32", "NAFNet_deblur_64", "NAFNet_deblur_JPEG_64"}  # ROADMAP A7
 
 
 def _applyConfigSpec(entry: dict, kind: str) -> TileSpec:
@@ -158,6 +182,8 @@ def buildExec(entry: dict, strength: float = 1.0, ensemble: int = 0, kind: str =
 def getSR(opt: dict) -> Optional[ModelExec]:
     """SR step options -> ModelExec."""
     name = opt["model"] + str(int(opt["scale"]))
+    if name in SR_NOT_PORTED:
+        raise NotImplementedError(f"SR model {name!r} is not ported yet (ROADMAP A7)")
     if name not in SR_REGISTRY:
         return None
     ens = opt.get("ensemble", config.ensembleSR)
@@ -165,9 +191,20 @@ def getSR(opt: dict) -> Optional[ModelExec]:
     return buildExec(SR_REGISTRY[name], ensemble=int(ens), kind="sr")
 
 
+def getDN(opt: dict) -> ModelExec:
+    """DN step options -> ModelExec: ``strength`` blends with the input;
+    the ``lite*`` models take the ``crop_dn`` tile cap, the others
+    ``crop_dns``."""
+    model = opt["model"]
+    if model in DN_NOT_PORTED:
+        raise NotImplementedError(f"DN model {model!r} is not ported yet (ROADMAP A7)")
+    kind = "dn" if model.startswith("lite") else "dns"
+    return buildExec(DN_REGISTRY[model], strength=float(opt.get("strength", 1.0)), kind=kind)
+
+
 def getDehaze(opt: dict) -> ModelExec:
     """dehaze/deblur/derain/demoire/retouch step options -> ModelExec."""
     model = opt.get("model", "dehaze")
     if model in DEHAZE_NOT_PORTED:
-        raise NotImplementedError(f"dehaze model {model!r} is not ported yet")
+        raise NotImplementedError(f"dehaze model {model!r} is not ported yet (ROADMAP A7)")
     return buildExec(DEHAZE_REGISTRY[model], strength=float(opt.get("strength", 1.0)))

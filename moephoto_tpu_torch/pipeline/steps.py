@@ -2,8 +2,9 @@
 
 A JSON list of ``{'op': ...}`` dicts compiles to a composed function plus
 a progress-Node list, as in the JAX package.  Ported ops: ``file``,
-``buffer``, ``SR``, ``dehaze``, ``slomo``, ``VSR`` and ``output``; the
-others raise ``NotImplementedError``.
+``buffer``, ``SR``, ``resize``, ``DN``, ``dehaze``, ``slomo``, ``VSR`` and
+``output``; ``demob`` raises ``NotImplementedError`` (ESTRNN, ROADMAP A11),
+as do the models the registry has not ported (A7).
 
 In-pipeline image representation: torch float32 HWC in [0, 1] on the
 compute device between steps; the ``output`` step copies to the host.
@@ -25,7 +26,7 @@ from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
-NOT_PORTED = {"DN", "resize", "demob"}
+NOT_PORTED = {"demob": "ROADMAP A11"}  # op -> the item it waits for
 videoOps = {"slomo", "VSR", "demob"}
 apply_ = lambda v, f: f(v)
 identity = lambda x, *_, **__: x
@@ -84,6 +85,12 @@ def procInput(source, bitDepth, fs, out):
     return fs, [node], out
 
 
+def procDN(opt, out, *_):
+    exec_ = opt["opt"]
+    node = newNode(opt, dict(op="DN", model=opt["model"]), out["load"])
+    return [NonNullWrap(node.bindFunc(execFilter(exec_)))], [node], out
+
+
 def convertChannel(out):
     out["channel"] = 0
     fs = []
@@ -114,6 +121,48 @@ def procDehaze(opt, out, *_):
     node = newNode(opt, dict(op=model), load)
     ns.append(appendFuncs(execFilter(exec_), node, fs))
     return fs, ns, out
+
+
+def resizeStep(opt, out, pos=0, nodes=()):
+    """Bilinear, nearest or bicubic resize of an HWC image to
+    ``width``/``height`` or by ``scaleW``/``scaleH``, as the JAX package's
+    ``resizeStep``.  The first image sets this step's node load and scales
+    the later nodes' loads by the area ratio; a video ``source`` does so
+    once and keeps the size for every frame."""
+    from moephoto_tpu_torch.models.api import resizeBilinear, resizeCubic, resizeNearest
+
+    opt_ = dict(opt)
+    opt_.setdefault("method", "bilinear")
+    state = {"update": True, "h": 1, "w": 1}
+
+    def f(im):
+        if state["update"]:
+            h, w = im.shape[0], im.shape[1]
+            nh = round(h * opt_["scaleH"]) if "scaleH" in opt_ else opt_["height"]
+            nw = round(w * opt_["scaleW"]) if "scaleW" in opt_ else opt_["width"]
+            state["h"], state["w"] = nh, nw
+            if len(nodes):
+                nodes[pos].load = im.numel()
+                for n in nodes[pos + 1 :]:
+                    n.multipleLoad(nh * nw / (h * w))
+            if out["source"]:
+                state["update"] = False
+        nh, nw = state["h"], state["w"]
+        x = im[None]
+        if opt_["method"] == "nearest":
+            y = resizeNearest(x, nh, nw)
+        elif opt_["method"] == "bicubic":
+            y = resizeCubic(x, nh, nw)
+        else:
+            y = resizeBilinear(x, nh, nw)
+        return y[0]
+
+    return f
+
+
+def procResize(opt, out, nodes):
+    node = newNode(opt, dict(op="resize", mode=opt.get("method", "bilinear")), out["load"])
+    return [node.bindFunc(NonNullWrap(resizeStep(opt, out, len(nodes), nodes)))], [node], out
 
 
 def toFloatHost(im) -> np.ndarray:
@@ -241,8 +290,10 @@ procs: Dict[str, Callable] = dict(
             dict(bitDepth=opt["bitDepth"], channel=1, source=1),
         )
     ),
+    DN=procDN,
     SR=procSR,
     dehaze=procDehaze,
+    resize=procResize,
     output=procOutput,
     slomo=procVideo("slomo"),
     VSR=procVideo("VSR"),
@@ -250,6 +301,8 @@ procs: Dict[str, Callable] = dict(
 
 stepOpts = dict(
     SR={"toInt": ["scale", "ensemble"], "getOpt": registry.getSR},
+    resize={"toInt": ["width", "height"], "toFloat": ["scaleW", "scaleH"]},
+    DN={"toFloat": ["strength"], "getOpt": registry.getDN},
     dehaze={"toFloat": ["strength"], "getOpt": registry.getDehaze},
     slomo={
         "toInt": ["ensemble"],
@@ -265,7 +318,7 @@ def genProcess(steps: List[dict], root: bool = True, outType: Optional[dict] = N
     """Compile a step list into (process, nodes)."""
     for opt in steps:
         if opt["op"] in NOT_PORTED:
-            raise NotImplementedError(f"step op {opt['op']!r} is not ported yet")
+            raise NotImplementedError(f"step op {opt['op']!r} is not ported yet ({NOT_PORTED[opt['op']]})")
     funcs: List[Callable] = []
     nodes: List[Node] = []
     last = identity

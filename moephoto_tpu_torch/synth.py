@@ -4,8 +4,9 @@ The real checkpoints are not part of the repository, so parity runs and
 the GPU smoke test use random weights made from a seed.  The lite draws
 follow the JAX package's random lite parameters
 (``__graft_entry__._lite2Params``) in the same order, so the same seed
-gives the same weights in both packages.  The sun, AOD, AiLUT and IFRNet
-draws are this module's own; the tests hand one dict to both packages.
+gives the same weights in both packages.  The sun, AOD, AiLUT, IFRNet,
+IconVSR, MyNet, NetDN and SEDN draws are this module's own; the tests
+hand one dict to both packages.
 
 Conv weights are drawn at 1/sqrt(fan-in), where a ConvTranspose's fan-in
 is the taps one output pixel sees (cin * k * k / stride**2); biases,
@@ -205,6 +206,50 @@ def synthIFRNetParams(size: str = "M", seed: int = 0) -> Dict[str, Dict[str, tor
         prelu(dec, pre + ".1.prelu", mid)
         convD(pre + ".2", mid, cout, 4, transpose=True, stride=2)
     return {"encoder": _torchDict(enc), "decoder": _torchDict(dec)}
+
+
+def _synthFromModule(model: torch.nn.Module, seed: int, gain: float) -> Dict[str, torch.Tensor]:
+    """Seeded draws for every entry of ``model.state_dict()``: conv weights
+    at ``gain`` / sqrt(fan-in), biases at 0.01, PReLU slopes around 0.25,
+    ARSB scales around 1 (the reference's init)."""
+    rng = np.random.RandomState(seed)
+    p: Dict[str, np.ndarray] = {}
+    for k, v in model.state_dict().items():
+        if v.ndim == 4:
+            p[k] = (rng.randn(*v.shape) * gain / np.sqrt(v[0].numel())).astype(np.float32)
+        elif k.endswith(".scale"):
+            p[k] = (1.0 + 0.05 * rng.randn(*v.shape)).astype(np.float32)
+        elif k.endswith("relu.weight") or k.endswith(".2.weight"):
+            p[k] = (0.25 + 0.05 * rng.randn(*v.shape)).astype(np.float32)
+        else:
+            p[k] = (0.01 * rng.randn(*v.shape)).astype(np.float32)
+    return _torchDict(p)
+
+
+def synthMyNetParams(scale: int = 2, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """State dict of a random MyNet x``scale`` (``models/sr.MyNetSR``).
+    Damped draws (0.7 / sqrt(fan-in)): each of the six ARSBs adds its
+    branch to its input at a scale near 1, and the sum stays of order 1."""
+    from moephoto_tpu_torch.models.sr import MyNetSR
+
+    return _synthFromModule(MyNetSR(scale), seed, 0.7)
+
+
+def synthNetDNParams(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """State dict of a random NetDN (``models/sr.NetDN``), damped as
+    :func:`synthMyNetParams`."""
+    from moephoto_tpu_torch.models.sr import NetDN
+
+    return _synthFromModule(NetDN(), seed, 0.7)
+
+
+def synthSEDNParams(seed: int = 0) -> Dict[str, torch.Tensor]:
+    """State dict of a random SEDN (``models/sr.SEDN``).  Damped draws
+    (0.7 / sqrt(fan-in)), so the sixteen residual blocks' sum stays of
+    order 1 and finite in bf16."""
+    from moephoto_tpu_torch.models.sr import SEDN
+
+    return _synthFromModule(SEDN(), seed, 0.7)
 
 
 # conv_offset's gain over the damped draw: it sets the DCN offsets' spread

@@ -68,7 +68,9 @@ def test_unported_ops_raise(models):
     from moephoto_tpu_torch.pipeline.steps import genProcess
 
     with pytest.raises(NotImplementedError, match="not ported"):
-        genProcess([{"op": "file"}, {"op": "DN", "model": "lite5"}, {"op": "output"}])
+        genProcess([{"op": "file"}, {"op": "DN", "model": "NAFNet_32"}, {"op": "output"}])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        genProcess([{"op": "file"}, {"op": "SR", "model": "gan", "scale": 4}, {"op": "output"}])
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(["video", "in.mkv", "out.mkv", "--steps", '[{"op": "demob"}]'])
 
