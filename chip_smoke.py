@@ -10,17 +10,23 @@ Phases, each printing one JSON line:
               nvcc per source, all started together
   3. kernels  holds each kernel against its plain PyTorch version on the
               card at the main paths' shapes: fusedUpHeads in fp32 (TF32
-              off) and bf16; ailutTransform at 1080p in range and out of
+              off) and bf16, with ragged row counts around the tensor-core
+              tiles, c = 96 with nUps 1 to 3, a width that is no multiple
+              of 16, two planes with per-channel slopes and inputs x8, and
+              which instance (wgmma at c = 48, mma.sync at c = 96, CUDA
+              cores) each case launched; ailutTransform at 1080p in range and out of
               range, with a batch of 2 and a ragged pixel count, and on
               values that equal vertices; warp at IFRNet-M's four 1080p
               warp shapes, a ragged shape, B = 2 and a stride-0 batch,
               both padding modes, fp32 and bf16, flows up to 40 px, 1e6
               and NaN, and backWarp against its plain fold; the DCNv2
               sampler (K3) at EDVR's three 640x360 shapes in bf16 and
-              fp32 (TF32 off), ragged shapes, dg 4 and 8, B = 1, Cout 96,
+              fp32 (TF32 off), ragged shapes and tiles, less than one
+              tile, dg 4, 6 and 8, B = 1, Cout 96 and 128, C = 128,
               16-byte and scalar corner loads, offsets up to 40 px, 1e6
               and NaN, offsets and mask read as strided slices of one
-              conv output; ailutTransformClamped (K5) at 1080p in and out
+              conv output, and which instance (tensor cores, CUDA cores)
+              each case launched; ailutTransformClamped (K5) at 1080p in and out
               of range with differing channel ranges, B = 2 ragged, NaN
               pixels, disjoint ranges (lo > hi), fp32 and bf16
      parity   the kernel parity gate (tools/chipparity.py runAll and
@@ -211,7 +217,7 @@ def upBound(M: int, c: int, nUps: int, cout: int, itemSize: int, peakFlops: floa
     return max(tOps, tBytes), ("operations" if tOps >= tBytes else "bytes")
 
 
-def upCase(ups, pack, M, dtype, seed):
+def upCase(ups, pack, M, dtype, seed, scale=1.0):
     from moephoto_tpu_torch.models.api import packBlockDiag
     from moephoto_tpu_torch.synth import synthLite2Params
 
@@ -221,36 +227,81 @@ def upCase(ups, pack, M, dtype, seed):
     params = {k: v.to("cuda", dtype) for k, v in sd.items()}
     g = torch.Generator(device="cuda").manual_seed(seed + M)
     c = 48 * pack
-    res = torch.randn((M, c), generator=g, device="cuda").to(dtype)
-    im = torch.randn((M, c), generator=g, device="cuda").to(dtype)
+    res = (torch.randn((M, c), generator=g, device="cuda") * scale).to(dtype)
+    im = (torch.randn((M, c), generator=g, device="cuda") * scale).to(dtype)
     return params, res, im, int(ups).bit_length() - 1
 
 
+def upHandCase(c, nUps, cout, M, dtype, seed):
+    """Up-path parameters built by hand at any width: weights at
+    1/sqrt(c), per-channel PReLU slopes in [-0.5, 1.5), cout head rows."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for br in ("ures", "uim"):
+        for i in range(nUps):
+            sd[f"{br}.{i}.0.weight"] = torch.randn((4 * c, c, 1, 1), generator=g) / c**0.5
+            sd[f"{br}.{i}.0.bias"] = torch.randn((4 * c,), generator=g) * 0.1
+            sd[f"{br}.{i}.2.weight"] = torch.rand((c,), generator=g) * 2 - 0.5
+    for head in ("convt_R1", "convt_I1"):
+        sd[head + ".weight"] = torch.randn((cout, c, 1, 1), generator=g) / c**0.5
+    params = {k: v.to("cuda", dtype) for k, v in sd.items()}
+    rows = [torch.randn((M, c), generator=g).to("cuda", dtype) for _ in range(2)]
+    return params, rows[0], rows[1], nUps
+
+
 def checkKernel(seed):
-    """fusedUpHeads against fusedUpHeadsPlain on the card."""
-    from moephoto_tpu_torch.ops.fusedup import fusedUpHeads, fusedUpHeadsPlain
+    """fusedUpHeads against fusedUpHeadsPlain on the card; which instance
+    each case launched is printed beside its error."""
+    from moephoto_tpu_torch.ops.fusedup import fusedUpHeads, fusedUpHeadsPlain, instanceVariant
 
     mainM = 10 * 3 * 256 * 256  # one x4 chunk: 10 tiles x 3 planes x 256^2 rows
-    cases = [(4, 1, mainM), (2, 1, 100_003), (8, 1, 50_001), (4, 2, 20_001)]
-    errs = {}
-    for ups, pack, M in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            params, res, im, nUps = upCase(ups, pack, M, dtype, seed)
-            got = fusedUpHeads(params, res, im, nUps).float()
-            want = fusedUpHeadsPlain(params, res, im, nUps).float()
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            if dtype == torch.float32:
-                ok = bool((diff <= FP32_TOL).all())
-            else:
-                ok = bool((diff <= BF16_REL * want.abs() + BF16_ABS).all())
-            name = f"nUps{nUps}_c{48 * pack}_M{M}_{str(dtype)[6:]}"
-            errs[name] = float(diff.max())
-            if not (ok and torch.isfinite(got).all()):
-                raise AssertionError(f"fusedUpHeads disagrees with its plain version: {name} max {errs[name]}")
-            del params, res, im, got, want, diff
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(lambda u=u, p=p, M=M, d=d: upCase(u, p, M, d, seed), f"nUps{int(u).bit_length() - 1}_c{48 * p}_M{M}", d, 1.0)
+             for u, p, M in ((4, 1, mainM), (2, 1, 100_003), (8, 1, 50_001), (4, 2, 20_001)) for d in (f32, bf)]
+    # ragged row counts around the tensor-core tiles: a warp's 16 rows, a
+    # warpgroup's 64, a block's 192, and several waves of 132 blocks plus a rest
+    for M in (1, 15, 17, 63, 65, 191, 193, 3 * 132 * 192 + 77):
+        cases.append((lambda M=M: upCase(4, 1, M, bf, seed), f"nUps2_c48_M{M}", bf, 1.0))
+    for M in (15, 17, 191, 193):
+        cases.append((lambda M=M: upCase(4, 2, M, bf, seed), f"nUps2_c96_M{M}", bf, 1.0))
+    cases += [
+        (lambda: upCase(8, 2, 20_001, bf, seed), "nUps3_c96_M20001", bf, 1.0),
+        (lambda: upCase(2, 2, 20_001, bf, seed), "nUps1_c96_M20001", bf, 1.0),
+        # inputs x8: PReLU's negative side and large sums; a stage value of
+        # size 8 that rounds the other way moves the output by 8 times as much
+        (lambda: upCase(4, 1, 300_007, bf, seed, 8.0), "nUps2_c48_M300007_x8", bf, 8.0),
+        (lambda: upHandCase(48, 2, 2, 70_001, bf, seed + 1), "hand_nUps2_c48_cout2_slopes_per_channel_M70001", bf, 1.0),
+        (lambda: upHandCase(48, 3, 2, 30_001, bf, seed + 2), "hand_nUps3_c48_cout2_slopes_per_channel_M30001", bf, 1.0),
+        (lambda: upHandCase(20, 2, 1, 40_003, bf, seed + 3), "hand_nUps2_c20_M40003", bf, 1.0),  # 20 % 16 != 0
+        (lambda: upHandCase(96, 1, 3, 10_001, bf, seed + 4), "hand_nUps1_c96_cout3_M10001", bf, 1.0),
+    ]
+    errs, launched = {}, {}
+    for make, name, dtype, scale in cases:
+        params, res, im, nUps = make()
+        got = fusedUpHeads(params, res, im, nUps).float()
+        inst = fusedUpHeads.lastInstance
+        want = fusedUpHeadsPlain(params, res, im, nUps).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if dtype == f32:
+            ok = bool((diff <= FP32_TOL).all())
+        else:
+            ok = bool((diff <= BF16_REL * want.abs() + BF16_ABS * scale).all())
+        name = f"{name}_{str(dtype)[6:]}"
+        errs[name] = float(diff.max())
+        launched[name] = instanceVariant(inst, res.shape[1], nUps, got.shape[1] // 4**nUps)
+        if not (ok and torch.isfinite(got).all()):
+            raise AssertionError(f"fusedUpHeads ({launched[name]}) disagrees with its plain version: {name} "
+                                 f"max {errs[name]}")
+        del params, res, im, got, want, diff
+    want = {"nUps2_c48_M1966080_bfloat16": "wgmma", "nUps2_c48_M1966080_float32": "cuda_core",
+            "nUps2_c96_M20001_bfloat16": "mma_weights_from_l1", "nUps1_c96_M20001_bfloat16": "mma_weights_in_smem",
+            "hand_nUps2_c20_M40003_bfloat16": "cuda_core", "hand_nUps1_c96_cout3_M10001_bfloat16": "mma_weights_in_smem",
+            "hand_nUps3_c48_cout2_slopes_per_channel_M30001_bfloat16": "wgmma"}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"fusedUpHeads launched {launched}, want {want}")
     emit(phase="kernels", kernel="fusedUpHeads", fp32_tol=FP32_TOL,
-         bf16_tol=f"{BF16_REL}*|plain|+{BF16_ABS}", max_abs_err=errs)
+         bf16_tol=f"{BF16_REL}*|plain|+{BF16_ABS}*input_scale", max_abs_err=errs, instance=launched)
     return errs
 
 
@@ -323,17 +374,30 @@ def timing(seed, gpu):
          device_idle_share=(1 - deviceMs / wallMs) if wallMs else None,
          top_kernels=[{"name": k[:80], "ms": t} for k, t in rows[:10]])
 
+    from moephoto_tpu_torch.ops.fusedup import prepare
+
     params, res, im, nUps = upCase(UPSCALE, 1, 10 * 3 * 256 * 256, torch.bfloat16, seed)
-    ms = cudaTimeMs(lambda: fusedUpHeads(params, res, im, nUps), ITERS)
+    M = res.shape[0]
+    # as the model calls it: weights prepared once; then with the preparation in every call
+    ready = {inst: prepare(params, nUps, torch.bfloat16, "cuda", inst) for inst in ("wgmma", "cuda_core")}
+    ms = cudaTimeMs(lambda: fusedUpHeads(ready["wgmma"], res, im, nUps), ITERS)
+    msUnprepared = cudaTimeMs(lambda: fusedUpHeads(params, res, im, nUps), ITERS)
+    msOld = cudaTimeMs(lambda: fusedUpHeads(ready["cuda_core"], res, im, nUps), 3)
+    ms2 = cudaTimeMs(lambda: fusedUpHeads(ready["wgmma"], res, im, nUps), ITERS)
     plainMs = cudaTimeMs(lambda: fusedUpHeadsPlain(params, res, im, nUps), 3)
-    bound, boundBy = upBound(res.shape[0], 48, nUps, 1, 2, PEAK_BF16_FLOPS)
+    bound, boundBy = upBound(M, 48, nUps, 1, 2, PEAK_BF16_FLOPS)
+    flop = 2 * (M * 2 * 20 * 48 * 48 + M * 16 * 2 * 48)
+    if not bound <= min(ms, ms2):
+        raise AssertionError(f"fusedUpHeads took {ms} ms, under its bound of {bound} ms: the count or the window is wrong")
     p32, r32, i32, _ = upCase(UPSCALE, 1, 10 * 3 * 256 * 256, torch.float32, seed)
     ms32 = cudaTimeMs(lambda: fusedUpHeads(p32, r32, i32, nUps), ITERS)
-    bound32, _ = upBound(res.shape[0], 48, nUps, 1, 4, PEAK_FP32_FLOPS)
-    emit(phase="kernel_timing", gpu=gpu, kernel="fusedUpHeads", M=res.shape[0], c=48, nUps=nUps,
-         bf16_ms=ms, bf16_plain_ms=plainMs, bf16_bound_ms=bound, bound_by=boundBy,
-         fp32_ms=ms32, fp32_bound_ms_cuda_cores=bound32)
-    return dict(ms=ms, plain_ms=plainMs, bound_ms=bound, bound_by=boundBy)
+    bound32, _ = upBound(M, 48, nUps, 1, 4, PEAK_FP32_FLOPS)
+    emit(phase="kernel_timing", gpu=gpu, kernel="fusedUpHeads", M=M, c=48, nUps=nUps,
+         bf16_ms=ms, bf16_ms_again=ms2, bf16_ms_weights_prepared_in_call=msUnprepared, variant="wgmma",
+         bf16_cuda_core_ms=msOld, bf16_plain_ms=plainMs, bf16_bound_ms=bound,
+         bound_by=boundBy, bf16_tflops=flop / (ms * 1e-3) / 1e12, bf16_share_of_bound=bound / ms,
+         fp32_ms=ms32, fp32_variant="cuda_core", fp32_bound_ms_cuda_cores=bound32)
+    return dict(ms=ms, plain_ms=plainMs, bound_ms=bound, bound_by=boundBy, variant="wgmma")
 
 
 def resetCounts():
@@ -837,7 +901,7 @@ def timingSlomo(seed, gpu, pathInputs):
 
 
 def isDcnKernel(name: str) -> bool:
-    return "::dcnKernel<" in name
+    return "::dcnKernel<" in name or "::dcnMmaKernel<" in name
 
 
 def dcnCase(seed, B, h, w, c, cout, dg, dtype, offDtype, scale):
@@ -884,13 +948,21 @@ def checkDcn(seed):
         "scalar_loads_1x29x53x12_cout20_dg4_bfloat16": (1, 29, 53, 12, 20, 4, bf, bf, 40.0),
         "huge_nan_1x64x96x64_bfloat16": (1, 64, 96, 64, 64, 8, bf, bf, 1e6),
         "huge_nan_1x64x96x64_float32": (1, 64, 96, 64, 64, 8, f32, f32, 1e6),
+        # the tensor-core instance's tiles are 16 x 16 pixels of one image
+        "under_one_tile_1x5x7x64_bfloat16": (1, 5, 7, 64, 64, 8, bf, bf, 3.0),
+        "ragged_tiles_3x130x131x64_bfloat16": (3, 130, 131, 64, 64, 8, bf, bf, 5.0),
+        "cout128_1x33x47x64_bfloat16": (1, 33, 47, 64, 128, 8, bf, bf, 10.0),
+        "c128_1x33x47_cout64_bfloat16": (1, 33, 47, 128, 64, 8, bf, bf, 10.0),
+        "c128_1x33x47_cout128_bfloat16": (1, 33, 47, 128, 128, 8, bf, bf, 10.0),
+        "dg6_1x21x23x48_cout96_bfloat16_fp32_offsets": (1, 21, 23, 48, 96, 6, bf, f32, 6.0),
     })
-    errs = {}
+    errs, launched = {}, {}
     for i, (name, (B, h, w, c, cout, dg, dtype, offDtype, scale)) in enumerate(cases.items()):
         x, off, mask, weight, bias, dg = dcnCase(seed + 70 + i, B, h, w, c, cout, dg, dtype, offDtype, scale)
         if name.startswith("huge"):  # 1e6 everywhere but a few NaN offsets
             off[0, ::9, ::7, 5] = float("nan")
         got = deformConv2d(x, off, mask, weight, bias, dg).float()
+        launched[name] = deformConv2d.lastInstance
         want = deformConv2dPlain(x, off, mask, weight, bias, dg).float()
         torch.cuda.synchronize()
         nan = torch.isnan(want)
@@ -902,8 +974,16 @@ def checkDcn(seed):
         if not bool((diff <= tol).all()):
             raise AssertionError(f"deformConv2d disagrees with its plain version: {name} max {errs[name]}")
         del x, off, mask, got, want, diff
+    # the weights of C = 128 do not fit beside the sample buffers; 12 channels are no multiple of 16
+    want = {"path_l1_7x384x640x64_bfloat16": "mma", "path_l1_7x384x640x64_float32": "cuda_core",
+            "huge_nan_1x64x96x64_bfloat16": "mma", "ragged_1x37x101x64_cout96_bfloat16_fp32_offsets": "mma",
+            "cout128_1x33x47x64_bfloat16": "mma", "c128_1x33x47_cout64_bfloat16": "cuda_core",
+            "c128_1x33x47_cout128_bfloat16": "cuda_core", "scalar_loads_1x29x53x12_cout20_dg4_bfloat16": "cuda_core",
+            "dg6_1x21x23x48_cout96_bfloat16_fp32_offsets": "mma"}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"deformConv2d launched {launched}, want {want}")
     emit(phase="kernels", kernel="deformConv2d", fp32_tol=f"{DCN_FP32_TOL}*max(1,|plain|)",
-         bf16_tol=f"{DCN_BF16_REL}*|plain|+{DCN_BF16_ABS}", max_abs_err=errs)
+         bf16_tol=f"{DCN_BF16_REL}*|plain|+{DCN_BF16_ABS}", max_abs_err=errs, instance=launched)
     return errs["path_l1_7x384x640x64_bfloat16"]
 
 
@@ -915,9 +995,9 @@ class DcnRecorder:
     def __init__(self, orig, record):
         self.orig, self.record = orig, record
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         self.record(*args)
-        return self.orig(*args)
+        return self.orig(*args, **kw)
 
     @property
     def launches(self):
@@ -1088,15 +1168,20 @@ def timingVsr(seed, gpu, pathInputs):
         x, off, mask, weight, bias, dg = pathInputs[lv]
         kernelMs = sum(t for k, t in profileOnce(
             lambda: [deformConv2d(x, off, mask, weight, bias, dg) for _ in range(ITERS)])[1] if isDcnKernel(k)) / ITERS
+        variant = deformConv2d.lastInstance
         wrapperMs = cudaTimeMs(lambda: deformConv2d(x, off, mask, weight, bias, dg), ITERS)
+        oldMs = cudaTimeMs(lambda: deformConv2d(x, off, mask, weight, bias, dg, instance="cuda_core"), 3)
         plainMs = cudaTimeMs(lambda: deformConv2dPlain(x, off, mask, weight, bias, dg), 2)
         bound, boundBy = dcnBound(x, off, mask, weight.shape[0])
+        if not bound <= kernelMs:
+            raise AssertionError(f"deformConv2d at {lv} took {kernelMs} ms, under its bound of {bound} ms")
         shapes[lv] = dict(shape=list(x.shape), dtype=str(x.dtype)[6:], offset_dtype=str(off.dtype)[6:],
-                          offset_strides=list(off.stride()), ms=kernelMs, wrapper_ms=wrapperMs, plain_ms=plainMs,
-                          bound_ms=bound, bound_by=boundBy, library_ms=None)
+                          offset_strides=list(off.stride()), ms=kernelMs, wrapper_ms=wrapperMs, variant=variant,
+                          cuda_core_wrapper_ms=oldMs, plain_ms=plainMs, bound_ms=bound, bound_by=boundBy,
+                          share_of_bound=bound / kernelMs, library_ms=None)
     emit(phase="kernel_timing", gpu=gpu, kernel="deformConv2d", by_level=shapes,
          library="none: no single PyTorch call computes DCNv2 (torchvision is absent)")
-    return shapes["l1"]
+    return dict(shapes["l1"])
 
 
 def checkLutClamped(seed):
@@ -1361,7 +1446,7 @@ def main(argv=None) -> int:
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
         "replaces": "moephoto_tpu/ops/fusedup.py:93", "launches": launches,
         "max_abs_err": errs["nUps2_c48_M1966080_bfloat16"], "ms": kt["ms"], "plain_ms": kt["plain_ms"],
-        "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"], "library_ms": None,
+        "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"], "library_ms": None, "variant": kt["variant"],
     }, {
         "name": "ailutTransform", "route": "cuda", "source": "moephoto_tpu_torch/csrc/ailut.cu",
         "replaces": "moephoto_tpu/ops/lutkernel.py:185", "launches": lutLaunches,
@@ -1376,7 +1461,7 @@ def main(argv=None) -> int:
         "name": "deformConv2d", "route": "cuda", "source": "moephoto_tpu_torch/csrc/dcn.cu",
         "replaces": "moephoto_tpu/ops/dcnkernel.py:184", "launches": dcnLaunches,
         "max_abs_err": dcnErr, "ms": dt["ms"], "plain_ms": dt["plain_ms"],
-        "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"], "library_ms": None,
+        "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"], "library_ms": None, "variant": dt["variant"],
     }, {  # launched by the parity gate only; timed at the gate's shape, and at 1080p beside it
         "name": "ailutTransformClamped", "route": "cuda", "source": "moephoto_tpu_torch/csrc/ailut.cu",
         "replaces": "moephoto_tpu/ops/lutkernel.py:322", "launches": clampLaunches,

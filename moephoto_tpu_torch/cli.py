@@ -49,6 +49,7 @@ def runImage(src: str, dst: str, steps):
     from moephoto_tpu_torch.runtime.context import context
 
     context.imageMode = "RGB"
+    context.stopFlag = _Flag()
     with open(src, "rb") as fp:
         data = fp.read()
     context.sharedView = memoryview(data)

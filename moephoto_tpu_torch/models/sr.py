@@ -32,7 +32,7 @@ from torch import nn
 
 from moephoto_tpu_torch.models.api import interleaveNested, prelu
 from moephoto_tpu_torch.models.blocks import ARSB, FRM, UpsampleBlock
-from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
+from moephoto_tpu_torch.ops.fusedup import PrepCache, fusedUpHeads, prepare
 
 NF, SE_HIDDEN = 48, 3
 
@@ -84,6 +84,17 @@ class MoeNetLite2(nn.Module):
         self.uim = nn.Sequential(*[_upStageModule(c) for _ in range(self.nUps)])
         self.convt_R1 = nn.Conv2d(c, pack, 1, bias=False)
         self.convt_I1 = nn.Conv2d(c, pack, 1, bias=False)
+        # the fused kernel's inputs, prepared once per (dtype, device): see upWeights
+        self._upCache = PrepCache()
+
+    def upWeights(self, dtype, device):
+        """What :func:`fusedUpHeads` reads, made from this module's up
+        stages and heads once for rows of ``dtype`` on ``device`` and kept
+        on the module; ``load_state_dict``, ``to`` and any in-place write
+        to one of those parameters make the next call build it anew."""
+        params = {k: v for k, v in self.named_parameters() if k.startswith(("ures.", "uim.", "convt_R1", "convt_I1"))}
+        return self._upCache.get((dtype, torch.device(device)), list(params.values()),
+                                 lambda: prepare(params, self.nUps, dtype, device))
 
     @staticmethod
     def _upStage(stage: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
@@ -115,9 +126,8 @@ class MoeNetLite2(nn.Module):
         res = res.permute(0, 2, 3, 1)  # NHWC again
         im = im.permute(0, 2, 3, 1)
         if self.fused:
-            params = dict(self.named_parameters())
             flat = fusedUpHeads(
-                params, res.reshape(-1, c), im.reshape(-1, c), self.nUps
+                self.upWeights(res.dtype, res.device), res.reshape(-1, c), im.reshape(-1, c), self.nUps
             )
             hr = flat.reshape((b, h, w) + (2, 2) * self.nUps + (-1,))
             return interleaveNested(hr, self.nUps)

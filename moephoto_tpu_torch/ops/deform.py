@@ -3,7 +3,9 @@
 :func:`deformConv2d` replaces the Pallas kernel of the JAX package
 (``moephoto_tpu/ops/dcnkernel.py:184`` ``dcnDensePallas``, body
 ``_dcnKernel`` :57, dispatched by ``ops/deform.py:166`` ``deformConv2d``)
-with a CUDA kernel written for Hopper (``csrc/dcn.cu``).  The TPU kernel
+with CUDA kernels written for Hopper (``csrc/dcn.cu``: one that contracts
+on the tensor cores, for bf16 at widths that tile, and one on the CUDA
+cores for everything else; :func:`pickInstance` chooses).  The TPU kernel
 folds bilinear sampling into hat weights over a [-M, M]^2 shift window,
 exact only while every |offset| <= M, so the JAX package picks a tier
 (M = 1, M = 3 or an XLA gather) from the largest |offset| of the call.
@@ -46,11 +48,57 @@ import torch
 from torch import nn
 
 from moephoto_tpu_torch.ops import _build
+from moephoto_tpu_torch.ops._prep import PrepCache
 from moephoto_tpu_torch.ops.warp import _coords, _unitChannel
 
 SOURCE = "dcn.cu"
 MAX_C, MAX_COUT = 128, 128
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take on Hopper
+MMA_TILE = 256       # pixels (16 x 16) a block of the tensor-core instance contracts at a time
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INSTANCES = {"cuda_core": 0, "mma": 1}
+
+
+def mmaSmemBytes(C: int, Cout: int) -> int:
+    """Shared memory of one block of the tensor-core instance: the bf16
+    weights, two (256, C + 8) bf16 sample buffers, two sets of pixel
+    coordinates."""
+    return 9 * C * Cout * 2 + 2 * MMA_TILE * (C + 8) * 2 + 2 * MMA_TILE * 16
+
+
+def pickInstance(dtype, C: int, Cout: int, dg: int, aligned: bool = True) -> str:
+    """Which kernel a call launches: ``"mma"`` (the contraction on the tensor
+    cores) for bf16 x with C and Cout multiples of 16, groups of a multiple
+    of 8 channels and x aligned for 16-byte corner loads (``aligned``: its
+    address and batch, row and pixel strides), while the weights fit in
+    shared memory; else ``"cuda_core"``."""
+    if (dtype == torch.bfloat16 and aligned and C % 16 == 0 and Cout % 16 == 0 and C % dg == 0
+            and (C // dg) % 8 == 0 and mmaSmemBytes(C, Cout) <= SMEM_LIMIT):
+        return "mma"
+    return "cuda_core"
+
+
+def packTaps(taps: torch.Tensor) -> torch.Tensor:
+    """(9, C, Cout) ``[k][c][o]`` -> (9, C * Cout) in the order the
+    tensor-core instance reads its B fragments: k-step j, column tile n,
+    lane (g, t), then ``W[k][16j + 8h + 2t + e][8n + g]`` over (h, e)."""
+    _, C, Cout = taps.shape
+    v = taps.reshape(9, C // 16, 2, 4, 2, Cout // 8, 8)  # k, j, h, t, e, n, g
+    return v.permute(0, 1, 5, 6, 3, 2, 4).reshape(9, C * Cout).contiguous()
+
+
+def unpackTaps(packed: torch.Tensor, C: int, Cout: int) -> torch.Tensor:
+    """Inverse of :func:`packTaps`: (9, C * Cout) -> (9, C, Cout)."""
+    v = packed.reshape(9, C // 16, Cout // 8, 8, 4, 2, 2)  # k, j, n, g, t, h, e
+    return v.permute(0, 1, 5, 4, 6, 2, 3).reshape(9, C, Cout).contiguous()
+
+
+def prepareTaps(weight: torch.Tensor, dtype, instance: str) -> torch.Tensor:
+    """The kernel's weight argument from the checkpoint's (Cout, C, 3, 3):
+    (9, C, Cout) taps in ``dtype``, packed for the tensor-core instance."""
+    Cout, C = weight.shape[:2]
+    taps = weight.to(dtype).permute(2, 3, 1, 0).reshape(9, C, Cout).contiguous()
+    return packTaps(taps) if instance == "mma" else taps
 
 
 def deformConv2dPlain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
@@ -99,7 +147,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         i64, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        lib.dcnForward.argtypes = ([i32, i32, i32] + [ptr, i64, i64, i64] * 3 + [ptr, ptr, ptr]
+        lib.dcnForward.argtypes = ([i32, i32, i32, i32] + [ptr, i64, i64, i64] * 3 + [ptr, ptr, ptr]
                                    + [i32] * 8 + [ptr])
         lib.dcnForward.restype = i32
         lib.dcnErrorString.argtypes = [i32]
@@ -110,13 +158,17 @@ def _library() -> ctypes.CDLL:
 
 def deformConv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor], deformableGroups: int, padding: int = 1,
-                 dilation: int = 1) -> torch.Tensor:
+                 dilation: int = 1, instance: Optional[str] = None, cache: Optional[PrepCache] = None) -> torch.Tensor:
     """DCNv2 3x3: (B, H, W, C) -> (B, H, W, Cout) in x's dtype.
 
     x, offset and mask fp32 or bf16 (each its own), with any batch, row
     and pixel strides; C a multiple of ``deformableGroups``, C <= 128,
     Cout <= 128.  CPU tensors take :func:`deformConv2dPlain`; CUDA tensors
-    launch the kernel or raise."""
+    launch a kernel or raise.  ``instance`` forces ``"mma"`` or
+    ``"cuda_core"`` (the latter takes every shape) over
+    :func:`pickInstance`; ``cache`` keeps the kernel's form of ``weight``
+    between calls; ``deformConv2d.lastInstance`` names what the last launch
+    ran."""
     if all(t.device.type == "cpu" for t in (x, offset, mask)):
         return deformConv2dPlain(x, offset, mask, weight, bias, deformableGroups, padding, dilation)
     others = (offset, mask, weight) + ((bias,) if bias is not None else ())
@@ -137,10 +189,17 @@ def deformConv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, weig
     if out.numel() == 0:
         return out
     x, offset, mask = _unitChannel(x), _unitChannel(offset), _unitChannel(mask)
-    taps = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, C, Cout).contiguous()
+    aligned = x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+    picked = pickInstance(x.dtype, C, Cout, dg, aligned)
+    instance = instance or picked
+    if instance not in _INSTANCES or (instance == "mma" and picked != "mma"):
+        raise ValueError(f"deformConv2d: no {instance} instance for {x.dtype}, C={C}, Cout={Cout}, dg={dg}, "
+                         f"x aligned to 16 bytes: {aligned}")
+    build = lambda: prepareTaps(weight, x.dtype, instance)
+    taps = cache.get((x.dtype, instance), [weight], build) if cache is not None else build()
     b = bias.float().contiguous() if bias is not None else None
     lib = _library()
-    err = lib.dcnForward(_TYPES[x.dtype], _TYPES[offset.dtype], _TYPES[mask.dtype],
+    err = lib.dcnForward(_INSTANCES[instance], _TYPES[x.dtype], _TYPES[offset.dtype], _TYPES[mask.dtype],
                          x.data_ptr(), *x.stride()[:3], offset.data_ptr(), *offset.stride()[:3],
                          mask.data_ptr(), *mask.stride()[:3], taps.data_ptr(),
                          b.data_ptr() if b is not None else None, out.data_ptr(),
@@ -148,10 +207,12 @@ def deformConv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, weig
     if err != 0:
         raise RuntimeError(f"deformConv2d launch failed: {lib.dcnErrorString(err).decode()}")
     deformConv2d.launches += 1
+    deformConv2d.lastInstance = instance
     return out
 
 
 deformConv2d.launches = 0
+deformConv2d.lastInstance = None
 
 
 class ModulatedDeformConvPack(nn.Module):
@@ -167,10 +228,13 @@ class ModulatedDeformConvPack(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.conv_offset = nn.Conv2d(cin, deformableGroups * 3 * 9, 3, 1, 1)
+        # the kernel's form of ``weight``, made once per (dtype, instance); a write to the
+        # weight (load_state_dict) or a move of the module makes the next call build it anew
+        self._tapsCache = PrepCache()
 
     def forward(self, x: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
         """x, feat NHWC -> NHWC."""
         out = self.conv_offset(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         n = 2 * self.deformableGroups * 9
         return deformConv2d(x, out[..., :n], torch.sigmoid(out[..., n:]), self.weight, self.bias,
-                            self.deformableGroups)
+                            self.deformableGroups, cache=self._tapsCache)

@@ -181,8 +181,9 @@ def test_wrapper_raises_off_cpu_without_kernel():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card: dg 2 and 8,
-    C = 64 (16-byte corner loads) and C = 12 (scalar), Cout 64 and 96,
+    """The CUDA kernels against their plain version on the card: dg 2 and 8,
+    C = 64 (16-byte corner loads; bf16 on the tensor cores) and C = 12
+    (scalar), Cout 64, 96 and 128,
     fp32 (TF32 off) and bf16, offsets up to 40 px, 1e6 and NaN, offsets
     and mask read as strided slices of one tensor.  The sampled values
     agree bit for bit; the contraction sums in another order, so fp32
@@ -192,7 +193,11 @@ def test_kernel_matches_plain_on_card():
     flags = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for seed, (B, H, W, C, Cout, dg) in enumerate(((2, 19, 37, 64, 64, 8), (1, 24, 40, 12, 96, 2))):
+        # the tensor-core instance's tiles are 16 x 16 pixels of one image:
+        # ragged tiles, less than one tile, Cout = 128; C = 128 goes to the CUDA cores
+        shapes = ((2, 19, 37, 64, 64, 8), (1, 24, 40, 12, 96, 2), (3, 33, 47, 64, 64, 8), (1, 5, 7, 64, 64, 8),
+                  (1, 17, 31, 64, 128, 8), (1, 17, 31, 128, 64, 8))
+        for seed, (B, H, W, C, Cout, dg) in enumerate(shapes):
             x, off, m, w, b = _case(10 + seed, B, H, W, C, Cout, dg, 80.0)
             off[0, 0, 0, 0, 0] = (1e6, -1e6)
             off[0, 1, 1, 0, 1, 0] = np.nan
@@ -205,6 +210,7 @@ def test_kernel_matches_plain_on_card():
                 before = D.deformConv2d.launches
                 got = D.deformConv2d(xt, ot, mt, wt, bt, dg).float()
                 assert D.deformConv2d.launches == before + 1
+                assert D.deformConv2d.lastInstance == D.pickInstance(dtype, C, Cout, dg)
                 want = D.deformConv2dPlain(xt, ot, mt, wt, bt, dg).float()
                 nan = torch.isnan(want)
                 assert torch.equal(torch.isnan(got), nan) and nan.any()
@@ -214,3 +220,62 @@ def test_kernel_matches_plain_on_card():
                 assert bool((diff <= tol).all()), float(diff.max())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+# ---- what the tensor-core instance adds on the host side (all on the CPU) ----
+
+
+@pytest.mark.parametrize("C,Cout", [(64, 64), (64, 96), (32, 48), (64, 128), (16, 16)])
+def test_packed_taps_unpack_to_taps(C, Cout):
+    """The packed block the tensor-core instance reads holds exactly the
+    (9, C, Cout) taps the CUDA-core instance reads, and a lane's 8 bytes are
+    the B fragment W[k][16j + 2t..][8n + g] of mma.sync.m16n8k16."""
+    weight = torch.from_numpy(np.random.RandomState(C + Cout).randn(Cout, C, 3, 3).astype(np.float32))
+    taps = D.prepareTaps(weight, torch.bfloat16, "cuda_core")
+    assert torch.equal(taps, weight.bfloat16().permute(2, 3, 1, 0).reshape(9, C, Cout))
+    packed = D.prepareTaps(weight, torch.bfloat16, "mma")
+    assert packed.shape == (9, C * Cout) and packed.dtype == torch.bfloat16
+    assert torch.equal(D.unpackTaps(packed, C, Cout), taps)
+    frag = packed.reshape(9, C // 16, Cout // 8, 32, 4)
+    k, j, n, g, t = 7, C // 16 - 1, Cout // 8 - 1, 6, 2
+    rows = [16 * j + 2 * t, 16 * j + 2 * t + 1, 16 * j + 8 + 2 * t, 16 * j + 9 + 2 * t]
+    assert torch.equal(frag[k, j, n, g * 4 + t], torch.stack([taps[k, r, 8 * n + g] for r in rows]))
+
+
+@pytest.mark.parametrize("dtype,C,Cout,dg,aligned,want", [
+    ("bfloat16", 64, 64, 8, True, "mma"),         # EDVR's DCNs: the VSR path
+    ("bfloat16", 64, 96, 8, True, "mma"),
+    ("bfloat16", 64, 128, 8, True, "mma"),
+    ("bfloat16", 32, 48, 4, True, "mma"),
+    ("bfloat16", 48, 96, 6, True, "mma"),
+    ("bfloat16", 128, 64, 8, True, "cuda_core"),  # the sample buffers of C = 128 leave the weights no room
+    ("bfloat16", 128, 128, 8, True, "cuda_core"),
+    ("bfloat16", 64, 64, 8, False, "cuda_core"),  # x not aligned for 16-byte corner loads
+    ("bfloat16", 64, 64, 16, True, "cuda_core"),  # groups of 4 channels: 8-byte corners
+    ("bfloat16", 12, 20, 4, True, "cuda_core"),   # widths that are no multiples of 16
+    ("bfloat16", 64, 72, 8, True, "cuda_core"),
+    ("float32", 64, 64, 8, True, "cuda_core"),
+])
+def test_instance_choice(dtype, C, Cout, dg, aligned, want):
+    assert D.pickInstance(getattr(torch, dtype), C, Cout, dg, aligned) == want
+    if want == "mma":
+        assert D.mmaSmemBytes(C, Cout) <= D.SMEM_LIMIT
+
+
+def test_pack_keeps_prepared_taps_until_the_weight_changes():
+    """ModulatedDeformConvPack's cache: the same packed taps on a second
+    request, fresh ones after load_state_dict."""
+    pack = D.ModulatedDeformConvPack(16, 16, 2)
+    with torch.no_grad():
+        pack.weight.normal_()
+    build = lambda: D.prepareTaps(pack.weight, torch.bfloat16, "mma")
+    first = pack._tapsCache.get((torch.bfloat16, "mma"), [pack.weight], build)
+    assert pack._tapsCache.get((torch.bfloat16, "mma"), [pack.weight], build) is first
+    assert pack._tapsCache.get((torch.bfloat16, "cuda_core"), [pack.weight],
+                               lambda: D.prepareTaps(pack.weight, torch.bfloat16, "cuda_core")) is not first
+    sd = {k: v.clone() for k, v in pack.state_dict().items()}
+    sd["weight"] = sd["weight"] * 2
+    pack.load_state_dict(sd)
+    second = pack._tapsCache.get((torch.bfloat16, "mma"), [pack.weight], build)
+    assert second is not first
+    assert torch.equal(D.unpackTaps(second, 16, 16), D.unpackTaps(first, 16, 16) * 2)

@@ -50,6 +50,26 @@ def test_cli_image_sr_matches_jax(models):
     assert np.abs(got - ref).max() <= 1
 
 
+def test_run_image_sets_a_fresh_stop_flag(models):
+    """As the JAX package's runImage: every image task starts with a stop
+    flag of its own that is not set, whatever the last task left behind."""
+    from moephoto_tpu.runtime.context import context as jaxContext
+    from moephoto_tpu_torch.runtime.context import context
+
+    src = str(models / "in.png")
+    Image.fromarray(np.random.RandomState(1).randint(0, 256, (9, 11, 3), np.uint8)).save(src)
+    context.stopFlag = None
+    cli.runImage(src, str(models / "a.png"), STEPS)
+    first = context.stopFlag
+    assert first is not None and first.is_set() is False
+    first.set()  # a task that was stopped
+    cli.runImage(src, str(models / "b.png"), STEPS)
+    assert context.stopFlag is not first and context.stopFlag.is_set() is False
+    jaxContext.stopFlag = None
+    jaxCli.runImage(src, str(models / "jax.png"), STEPS)
+    assert jaxContext.stopFlag is not None and jaxContext.stopFlag.is_set() is False
+
+
 def test_entry_points_raise_without_gpu(models):
     """With the default device and no GPU the port raises instead of
     running on the CPU."""
