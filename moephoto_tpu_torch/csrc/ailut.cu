@@ -27,6 +27,24 @@
 // gridDim.y.  Images are fp32 or bf16, computed in fp32, written back in
 // the image's type.
 //
+// What bounds it is the corner gathers, not device memory: each (r, r+1)
+// corner pair is 32 bytes and starts on a 32-byte sector only when r is
+// even, so a pixel touches about 6 sectors of L2 in its 8 reads, and an
+// image with no colour locality takes over twice as long as a constant
+// one (chip_smoke.py kernel_timing).  Two layouts that cut those reads
+// were built, held bit-equal and measured at 1080p, and neither is kept,
+// since both were slower on the retouch chain's input:
+// * the table resident in shared memory, 17 b-planes (222 KB at D = 33)
+//   staged by a bulk asynchronous copy into each block of a two-block
+//   cluster, pixels routed to the block that holds their b-bin: staging
+//   reads about 29 MB of L2 a launch, one block of 1024 threads is all an
+//   SM holds beside the table, and 24 scalar shared-memory reads a pixel
+//   at random banks do not overlap the rest of its instructions;
+// * a cell-major copy of the table, each cell's 8 corners x 3 channels as
+//   96 contiguous bytes, 3 sectors a pixel: faster on random colours,
+//   smooth and constant images, but on neighbouring pixels in neighbouring
+//   cells it duplicates the corners this layout shares in cache.
+//
 // The Clamp instance replaces the TPU's other AiLUT kernel,
 // moephoto_tpu/ops/lutkernel.py:322 ailutTransformPallas (Pallas body
 // _lutKernel :58), which only the kernel parity gate runs.  That body is

@@ -23,7 +23,7 @@ from moephoto_tpu_torch.ops import lut
 D = 33
 
 
-def _case(seed, shape=(2, 40, 64, 3), lo=0.0, hi=1.0):
+def _case(seed, shape=(2, 40, 64, 3), lo=0.0, hi=1.0, D=D):
     """Image uniform in [lo, hi), random LUT, sorted non-uniform vertices
     from 0 to 1 (a softmax cumsum, as the model makes them)."""
     rng = np.random.RandomState(seed)
@@ -44,6 +44,29 @@ def _jax(fn, img, table, vert):
 
 def _port(img, table, vert, fn=lut.ailutTransformPlain):
     return fn(torch.from_numpy(img), torch.from_numpy(table), torch.from_numpy(vert)).numpy()
+
+
+def onVertices(img, vert, D):
+    """A third of the pixels exactly on vertices: v[0] .. v[D-1] of each
+    channel in turn."""
+    B, H, W, _ = img.shape
+    img = img.copy()
+    k = np.arange(H * W)[: (H * W) // 3]
+    for c in range(3):
+        img.reshape(B, H * W, 3)[:, k, c] = vert[:, c, k % D]
+    return img
+
+
+CASES = {  # D, shape, image range, special
+    "D17_in_range": (17, (1, 12, 20, 3), 0.0, 1.0, None),
+    "D17_extrapolate": (17, (1, 12, 20, 3), -0.4, 1.5, None),
+    "D33_in_range": (33, (1, 12, 20, 3), 0.0, 1.0, None),
+    "D33_extrapolate": (33, (1, 12, 20, 3), -0.4, 1.5, None),
+    "D33_on_vertices": (33, (1, 9, 16, 3), -0.2, 1.2, onVertices),
+    "D33_B2_ragged": (33, (2, 7, 13, 3), -0.4, 1.5, None),
+    "D48_extrapolate": (48, (1, 9, 16, 3), -0.4, 1.5, None),
+    "D64_on_vertices": (64, (1, 12, 20, 3), -0.2, 1.2, onVertices),
+}
 
 
 def _assertClose(got, ref):
@@ -113,17 +136,38 @@ def test_wrapper_raises_off_cpu_without_kernel():
                            torch.empty((1, 3, D), device="meta"))
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_jax_transform_across_sizes(name):
+    """The plain version the kernel is held to, against the XLA transform
+    at every side the kernel's cases use (D = 17, 33, 48, 64), on values
+    that sit on every vertex, out of range, and B = 2 with a ragged pixel
+    count."""
+    d, shape, lo, hi, special = CASES[name]
+    img, table, vert = _case(20 + list(CASES).index(name), shape, lo, hi, d)
+    if special is not None:
+        img = special(img, vert, d)
+    ref = _jax(jaxAilutTransform, img, table, vert)
+    _assertClose(_port(img, table, vert), ref)
+    if lo < 0:  # the extrapolation branch really ran
+        assert np.abs(ref).max() > 1.0
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """CUDA kernel against its plain version on the card, in range, out of
-    range, with ties, B = 2 with a ragged pixel count, fp32 and bf16.
-    Tolerance 1e-5 * max(1, |plain|): the kernel rounds each operation
-    where the plain version does."""
+    range, with ties (a third of the pixels on vertices), B = 2 with a
+    ragged pixel count, D = 17, 48 and 64, fp32 and bf16.  Tolerance
+    1e-5 * max(1, |plain|): the kernel rounds each operation where the
+    plain version does."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for seed, shape, lo, hi in ((6, (1, 67, 129, 3), 0.0, 1.0), (7, (2, 33, 77, 3), -0.4, 1.5)):
-        img, table, vert = _case(seed, shape, lo, hi)
-        img[0, 0, :3] = vert[0, :, :3].T  # exact vertex values
+    cases = ((6, (1, 67, 129, 3), 0.0, 1.0, 33), (7, (2, 33, 77, 3), -0.4, 1.5, 33),
+             (8, (1, 270, 480, 3), -0.4, 1.5, 33), (9, (2, 257, 263, 3), -0.2, 1.2, 33),
+             (10, (1, 270, 480, 3), -0.4, 1.5, 17), (11, (1, 67, 129, 3), -0.4, 1.5, 48),
+             (12, (1, 270, 480, 3), -0.2, 1.2, 64))
+    for seed, shape, lo, hi, d in cases:
+        img, table, vert = _case(seed, shape, lo, hi, d)
+        img = onVertices(img, vert, d)
         args = [torch.from_numpy(a).cuda() for a in (img, table, vert)]
         for dtype in (torch.float32, torch.bfloat16):
             x = args[0].to(dtype)

@@ -20,11 +20,12 @@ import torch
 from moephoto_tpu.ops.lut import ailutTransform as jaxAilutTransform
 from moephoto_tpu.ops.lutkernel import ailutTransformPallas
 from moephoto_tpu_torch.ops import lut
+from test_torch_lut import onVertices
 
 D = 33
 
 
-def _case(seed, shape=(2, 24, 40, 3), lo=0.0, hi=1.0, ranges=((0.0, 1.0),) * 3):
+def _case(seed, shape=(2, 24, 40, 3), lo=0.0, hi=1.0, ranges=((0.0, 1.0),) * 3, D=D):
     """Image uniform in [lo, hi), random LUT, and per channel strictly
     increasing non-uniform vertices from ``ranges[c][0]`` to
     ``ranges[c][1]``."""
@@ -172,18 +173,57 @@ def test_wrapper_raises_off_cpu_without_kernel():
                                   torch.empty((1, 3, D), device="meta"))
 
 
+DISJOINT = ((0.6, 1.0), (0.0, 1.0), (0.0, 0.4))
+CASES = {  # D, shape, image range, channel ranges, special, NaN pixels
+    "D17_in_range": (17, (1, 12, 20, 3), 0.0, 1.0, ((0.0, 1.0),) * 3, None, False),
+    "D17_clamped": (17, (1, 12, 20, 3), -0.4, 1.5, SHIFTED, None, False),
+    "D33_in_range": (33, (1, 12, 20, 3), 0.0, 1.0, ((0.0, 1.0),) * 3, None, False),
+    "D33_clamped_nan": (33, (1, 12, 20, 3), -0.4, 1.5, SHIFTED, None, True),
+    "D33_on_vertices": (33, (1, 9, 16, 3), -0.2, 1.2, SHIFTED, onVertices, False),
+    "D33_disjoint_ranges": (33, (1, 9, 16, 3), -0.4, 1.5, DISJOINT, None, False),
+    "D33_B2_ragged": (33, (2, 7, 13, 3), -0.4, 1.5, SHIFTED, None, False),
+    "D64_clamped": (64, (1, 12, 20, 3), -0.4, 1.5, SHIFTED, None, False),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_jax_transform_across_sizes(name):
+    """The plain clamping version the kernel is held to, against the XLA
+    transform on the clipped inputs at every side the kernel's cases use
+    (D = 17, 33, 64): NaN where the input is NaN, values on every vertex,
+    disjoint ranges, and B = 2 with a ragged pixel count."""
+    d, shape, lo, hi, ranges, special, nan = CASES[name]
+    img, table, vert = _case(30 + list(CASES).index(name), shape, lo, hi, ranges, d)
+    if special is not None:
+        img = special(img, vert, d)
+    if nan:
+        img[0, 2, 3, 1] = np.nan
+    got = _port(img, table, vert)
+    assert np.isnan(got).any() == nan
+    clipped, _, _ = _clipped(img, vert)
+    ref = _jax(jaxAilutTransform, clipped, table, vert)
+    ok = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), ok)
+    err = np.abs(got - ref)[ok]
+    assert np.all(err <= 1e-5 * np.maximum(1.0, np.abs(ref[ok]))), float(err.max())
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """CUDA kernel against its plain version on the card: out of range with
     differing channel ranges, B = 2 with a ragged pixel count, a NaN pixel,
-    disjoint ranges, fp32 and bf16.  Tolerance 1e-5 * max(1, |plain|): the
-    kernel rounds each operation where the plain version does."""
+    disjoint ranges, pixels on vertices, D = 17, 48 and 64, fp32 and bf16.
+    Tolerance 1e-5 * max(1, |plain|): the kernel rounds each operation
+    where the plain version does."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    disjoint = ((0.6, 1.0), (0.0, 1.0), (0.0, 0.4))
-    for seed, shape, ranges in ((10, (1, 67, 129, 3), SHIFTED), (11, (2, 33, 77, 3), SHIFTED),
-                                (12, (1, 16, 31, 3), disjoint)):
-        img, table, vert = _case(seed, shape, -0.4, 1.5, ranges)
+    cases = ((10, (1, 67, 129, 3), SHIFTED, 33), (11, (2, 33, 77, 3), SHIFTED, 33),
+             (12, (1, 16, 31, 3), DISJOINT, 33), (13, (1, 270, 480, 3), SHIFTED, 33),
+             (14, (2, 257, 263, 3), DISJOINT, 33), (15, (1, 270, 480, 3), SHIFTED, 17),
+             (16, (1, 67, 129, 3), SHIFTED, 48), (17, (1, 270, 480, 3), SHIFTED, 64))
+    for seed, shape, ranges, d in cases:
+        img, table, vert = _case(seed, shape, -0.4, 1.5, ranges, d)
+        img = onVertices(img, vert, d)
         img[0, 1, 2, 0] = np.nan
         args = [torch.from_numpy(a).cuda() for a in (img, table, vert)]
         for dtype in (torch.float32, torch.bfloat16):
