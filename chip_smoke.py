@@ -88,6 +88,25 @@ Phases, each printing one JSON line:
               device-resident 1080p image (Mpx/s by CUDA events, device
               ms, idle share and top kernels from one profiled call), and
               K5 alone at 1080p and at the gate's 32x64, timed as above
+ 10. mesh     the multi-device serving layer on the one card, row shards of
+              cuda:0 x 2 and x 4 (installed meshes): K2a (warpSpmd,
+              backWarpSpmd), K3's tier (deformConv2dSpmd) and K6
+              (ailutTransformSpmd) held bit-equal to the single-device
+              kernels on the inputs the video, vsr and retouch phases
+              recorded, flows that span shards included; cli image lite x4
+              on the main phase's PNG under [2] (within 1 LSB of its output,
+              K1 launched by each mesh slot); cli video IFRNet-M slomo x2 on
+              the video phase's 9 frames under [2] and [4] (17 frames, each
+              within 1 LSB of the video phase's, K2a launches, gathered
+              segments and host reads counted), and on 5 frames at
+              3840x2160 under [2] and [4] against a single-device run
+              there (9 frames, the same bound), where IFRNet's 1/8 level
+              runs sharded; the 128x128 slomo crop in
+              fp32 against the single-device card run; EDVR's DCN module and
+              AiLUT under spmdTracing(); then slomo and lite x4 Mpx/s
+              sharded against single-device, the halo exchange's ms per
+              stage, and each sharded kernel's per-shard median launch
+              beside its bound
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; with no CUDA device it
@@ -749,12 +768,18 @@ def spread(ms):
     return {"n": len(s), "min": s[0], "median": s[len(s) // 2], "max": s[-1]} if s else {"n": 0}
 
 
-def medianLaunchMs(fn, match, iters=ITERS):
+def medianLaunchMs(fn, match, iters=ITERS, windows=3):
     """Median device ms of the launches of the kernels ``match`` accepts
-    over ``iters`` calls of ``fn``, and how many the profiler recorded."""
-    ms = [t for _, k, t in launchMs(fn, iters) if match(k)]
+    over ``iters`` calls of ``fn``, and how many the profiler recorded.  A
+    window that recorded under half the calls' launches is profiled again,
+    up to ``windows`` times (the profiler has dropped a whole window of
+    warp launches on an H100)."""
+    for _ in range(windows):
+        ms = [t for _, k, t in launchMs(fn, iters) if match(k)]
+        if 2 * len(ms) >= iters:
+            break
     if not ms:
-        raise AssertionError("the profiler recorded no launch of the kernel")
+        raise AssertionError(f"the profiler recorded no launch of the kernel in {windows} windows")
     return spread(ms)["median"], len(ms)
 
 
@@ -785,10 +810,15 @@ def timeLut(kernel, plain, img, table, vertices, iters=2 * ITERS):
         img.amax()
         fn()
 
-    times = {}
+    times, windows = {}, {}
     for name, f in (("warm", fn), ("cold", cold), ("hot", hot)):
-        ms = [t for _, k, t in launchMs(f, iters) if isLutKernel(k)]
-        if not iters // 2 <= len(ms) <= iters:  # a dropped record shortens the list, not a time
+        # a dropped record shortens the list, not a time; a window that recorded under half its launches
+        # (2 of 20 in one run) is profiled again, at most three times in all
+        for windows[name] in range(1, 4):
+            ms = [t for _, k, t in launchMs(f, iters) if isLutKernel(k)]
+            if iters // 2 <= len(ms) <= iters:
+                break
+        if not iters // 2 <= len(ms) <= iters:
             raise AssertionError(f"{kernel.__name__}: {len(ms)} lookups recorded in {iters} calls")
         times[name] = spread(ms)
     dst = torch.empty_like(img)
@@ -802,6 +832,7 @@ def timeLut(kernel, plain, img, table, vertices, iters=2 * ITERS):
     bound, boundBy = lutBound(img, table, vertices)
     ms = times["warm"]["median"]
     return dict(ms=ms, cold_ms=times["cold"]["median"], hot_ms=times["hot"]["median"], launch_ms=times,
+                profiled_windows=windows,
                 summed_ms=sumMs, summed_recorded=recorded, call_device_ms=callMs, kernels_per_call=kernels,
                 wrapper_ms=cudaTimeMs(fn, ITERS),
                 plain_ms=cudaTimeMs(lambda: plain(img, table, vertices), 3), bound_ms=bound, bound_by=boundBy,
@@ -962,7 +993,7 @@ def runVideo(work):
 
     os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = f"{W}x{H}", str(VIDEO_FRAMES)
     dst = os.path.join(work, "slomo.mkv")
-    with PathWarps() as warps:
+    with PathWarps() as warps, FrameCapture() as cap:
         resetCounts()
         t0 = time.perf_counter()
         path, frames = cli.runVideo(os.path.join(work, "in.mkv"), dst, SLOMO)
@@ -978,7 +1009,7 @@ def runVideo(work):
     emit(phase="video", steps=SLOMO, input=[VIDEO_FRAMES, H, W, 3], frames_read=frames,
          encoded_frames=meta["bytes"] // (W * H * 6), geometry=meta["s"], seconds=seconds, launches=launches,
          max_abs_flow_by_warp_shape=warps.maxFlow, nan_flow_by_warp_shape=warps.nan)
-    return launches["warp"], warps.inputs
+    return launches["warp"], warps.inputs, [np.frombuffer(b, np.uint16) for b in cap.frames]
 
 
 def slomoStream(opt, collect):
@@ -1528,6 +1559,470 @@ def timingDn(seed, gpu):
     return shapes
 
 
+# --- the multi-device serving layer on the one card ---------------------------
+
+MESH_SIZES = (2, 4)  # row shards of cuda:0 in the mesh phase
+# slomo on a mesh vs the single-device card run: 16-bit output values
+MESH_VIDEO_LSB = 1
+# the 128x128 slomo crop in fp32 (TF32 off) on a mesh vs the single-device card run: the same
+# kernels on the same rows; the mean sums per shard and cuDNN picks algorithms per shape
+MESH_CROP_TOL = 2e-5
+# a second resolution for slomo on a mesh: IFRNet gathers its segments at 1/8 of the rows and
+# coarser (GATHER_FROM_LEVEL), at 2160p 270 rows and fewer
+UHD, UHD_FRAMES = (3840, 2160), 5
+
+
+def cardMesh(n):
+    from moephoto_tpu_torch.parallel.mesh import makeMesh
+
+    return makeMesh([n], devices=[torch.device("cuda", 0)] * n)
+
+
+def cardShards(t, n, align=1):
+    from moephoto_tpu_torch.parallel.sharded import RowShards
+
+    return RowShards.split(t, [torch.device("cuda", 0)] * n, 1, align)
+
+
+def resetMeshCounts():
+    from moephoto_tpu_torch.ops.deform import deformConv2dSpmd
+    from moephoto_tpu_torch.ops.lut import ailutTransformSpmd
+    from moephoto_tpu_torch.ops.warp import warpSpmd
+    from moephoto_tpu_torch.parallel import sharded
+
+    warpSpmd.launches = deformConv2dSpmd.launches = ailutTransformSpmd.launches = 0
+    sharded.resetStats()
+
+
+def readMeshCounts():
+    from moephoto_tpu_torch.ops.deform import deformConv2dSpmd
+    from moephoto_tpu_torch.ops.lut import ailutTransformSpmd
+    from moephoto_tpu_torch.ops.warp import warpSpmd
+    from moephoto_tpu_torch.parallel import sharded
+
+    return {"warpSpmd": warpSpmd.launches, "deformConv2dSpmd": deformConv2dSpmd.launches,
+            "ailutTransformSpmd": ailutTransformSpmd.launches, "gathered_segments": sharded.stats["gathers"],
+            "host_reads": sharded.stats["hostReads"], "halo_bytes": sharded.stats["haloBytes"],
+            "tile_calls_by_slot": dict(sharded.stats["tileCalls"])}
+
+
+class Meshed:
+    """While entered, ``mesh`` is the active mesh (None: single device)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from moephoto_tpu_torch.parallel.mesh import installMesh
+
+        installMesh(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        from moephoto_tpu_torch.parallel.mesh import installMesh
+
+        installMesh(None)
+        return False
+
+
+class FrameCapture:
+    """While installed (it wraps ``video.engine.prepare``): every raw frame
+    the video path sends to the encoder."""
+
+    def __enter__(self):
+        from moephoto_tpu_torch.video import engine
+
+        self.module, self.orig, self.frames = engine, engine.prepare, []
+
+        def prepare(*args):
+            p = self.orig(*args)
+            process = p["process"]
+
+            def record(item):
+                bufs = process(item)
+                self.frames.extend(b for b in bufs or () if b)
+                return bufs
+
+            p["process"] = record
+            return p
+
+        engine.prepare = prepare
+        return self
+
+    def __exit__(self, *exc):
+        self.module.prepare = self.orig
+        return False
+
+
+def holdEqual(errs, key, got, want):
+    """Bit-equality, NaN where ``want`` is NaN; the largest difference
+    (0.0) goes into ``errs``."""
+    nan = torch.isnan(want)
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{key}: shape, type or NaNs differ from the single-device kernel")
+    errs[key] = float((got.float() - want.float()).abs()[~nan].max()) if (~nan).any() else 0.0
+    if errs[key] != 0.0:
+        raise AssertionError(f"{key}: {errs[key]} from the single-device kernel, want bit-equal")
+
+
+def checkMeshKernels(seed, warpInputs, dcnInputs, lutInput, lutModel):
+    """K2a, K3's tier and K6 on cuda:0 x 2 and x 4 against the single-device
+    kernels, bit-equal: the warp at IFRNet-M's four 1080p shapes on the
+    inputs the video phase recorded, fp32 and bf16, both modes, and on
+    flows that span several shards; backWarp; the DCN at EDVR's three
+    640x360 shapes on the offsets the vsr phase recorded, bf16 and fp32
+    (TF32 off); the AiLUT transform at 1080p on the retouch chain's input."""
+    from moephoto_tpu_torch.ops.deform import deformConv2d, deformConv2dSpmd
+    from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformSpmd
+    from moephoto_tpu_torch.ops.warp import backWarp, backWarpSpmd, warp, warpSpmd
+
+    with torch.inference_mode():
+        _, table, vertices = lutModel.generate(lutInput)
+    spans = {"spans_136x240x72_bfloat16": warpCase(seed + 70, 1, 136, 240, 72, torch.bfloat16, torch.bfloat16, 80.0),
+             "spans_1088x1920x3_float32": warpCase(seed + 71, 1, 1088, 1920, 3, torch.float32, torch.float32, 600.0)}
+    errs, reach = {}, {}
+    for n in MESH_SIZES:
+        resetMeshCounts()
+        for key, (img, flow) in list(warpInputs.items()) + list(spans.items()):
+            other = torch.float32 if img.dtype == torch.bfloat16 else torch.bfloat16
+            for x in (img, img.to(other)):
+                for mode in ("border", "zeros"):
+                    got = warpSpmd(cardShards(x, n), cardShards(flow, n), mode).gather()
+                    holdEqual(errs, f"warpSpmd_{n}_{key}_{str(x.dtype)[6:]}_{mode}", got, warp(x, flow, mode))
+            reach[f"{n}_{key}"] = int(flow.float().abs().nan_to_num(0.0).max().ceil()) + 1
+        img, flow = warpInputs["544x960x32_bfloat16"]
+        holdEqual(errs, f"backWarpSpmd_{n}_544x960x32", backWarpSpmd(cardShards(img, n), cardShards(flow, n)).gather(),
+                  backWarp(img, flow))
+        for lv in ("l3", "l2", "l1"):
+            x, off, mask, weight, bias, dg = dcnInputs[lv]
+            for xd in (x, x.float()):
+                got = deformConv2dSpmd(cardShards(xd, n), cardShards(off, n), cardShards(mask, n), weight, bias, dg)
+                holdEqual(errs, f"deformConv2dSpmd_{n}_{lv}_{str(xd.dtype)[6:]}", got.gather(),
+                          deformConv2d(xd, off, mask, weight, bias, dg))
+        holdEqual(errs, f"ailutTransformSpmd_{n}_1080p", ailutTransformSpmd(cardShards(lutInput, n), table,
+                                                                            vertices).gather(),
+                  ailutTransform(lutInput.contiguous(), table, vertices))
+        counts = readMeshCounts()
+        cases = len(warpInputs) + len(spans)
+        want = {"warpSpmd": n * (cases * 4 + 1), "deformConv2dSpmd": n * 6, "ailutTransformSpmd": n}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"mesh kernels on {n} shards launched {counts}, want {want}")
+    torch.cuda.synchronize()
+    emit(phase="mesh_kernels", shards=list(MESH_SIZES), tol="bit-equal (0.0)", cases=len(errs),
+         max_abs_err=max(errs.values()), warp_reach_rows=reach, dcn_shapes={lv: list(dcnInputs[lv][0].shape)
+                                                                            for lv in ("l3", "l2", "l1")},
+         ailut_input=list(lutInput.shape))
+    return max(errs.values())
+
+
+def runMeshImage(work, n, want):
+    """``cli image`` lite x4 on the 1080p PNG of the main phase under the
+    [n] mesh (one replica a device): the 7680x4320 output within 1 LSB of
+    the main phase's, K1 launched by every mesh slot."""
+    from PIL import Image
+
+    from moephoto_tpu_torch import cli
+
+    src, dst = os.path.join(work, "in.png"), os.path.join(work, f"mesh{n}_out.png")
+    with Meshed(cardMesh(n)):
+        resetCounts()
+        resetMeshCounts()
+        t0 = time.perf_counter()
+        cli.runImage(src, dst, STEPS)
+        seconds = time.perf_counter() - t0
+        launches, mesh = readCounts(), readMeshCounts()
+    with Image.open(dst) as out:
+        got = np.asarray(out).astype(np.int32)
+    lsb = int(np.abs(got - want.astype(np.int32)).max()) if got.shape == want.shape else None
+    slots = mesh["tile_calls_by_slot"]
+    if lsb is None or lsb > 1 or launches["fusedUpHeads"] != 4 or slots != {j: 4 // n for j in range(n)}:
+        raise AssertionError(f"mesh image on {n}: shape {got.shape}, {lsb} LSB from the main phase, "
+                             f"launches {launches}, model calls by slot {slots}")
+    emit(phase="mesh_image", shards=n, steps=STEPS, output=list(got.shape), seconds=seconds, launches=launches,
+         fusedUpHeads_by_slot=slots, max_lsb_vs_single=lsb, share_differing=float((got != want).mean()))
+
+
+def runSingleVideo(work, size, count):
+    """``cli video`` IFRNet-M slomo x2, single-device, on ``count`` frames of
+    ``size`` (w, h): the raw frames sent to the encoder."""
+    from moephoto_tpu_torch import cli
+
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = "%dx%d" % size, str(count)
+    with FrameCapture() as cap:
+        _, frames = cli.runVideo(os.path.join(work, "in.mkv"), os.path.join(work, "single_%dx%d.mkv" % size), SLOMO)
+    if frames != count or len(cap.frames) != 2 * count - 1:
+        raise AssertionError(f"video at {size}: {frames} frames in, {len(cap.frames)} out")
+    return [np.frombuffer(b, np.uint16) for b in cap.frames]
+
+
+def runMeshVideo(work, n, single, size=(W, H), count=VIDEO_FRAMES):
+    """``cli video`` IFRNet-M slomo x2 on ``count`` frames of ``size`` (the
+    video phase's 9 frames at 1080p by default) under the [n] mesh:
+    2 count - 1 frames, each 16-bit value within MESH_VIDEO_LSB of the
+    single-device run; K2a's launches, the gathered segments and the host
+    reads of the reach counted."""
+    from moephoto_tpu_torch import cli
+
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = "%dx%d" % size, str(count)
+    with Meshed(cardMesh(n)), FrameCapture() as cap:
+        resetCounts()
+        resetMeshCounts()
+        t0 = time.perf_counter()
+        path, frames = cli.runVideo(os.path.join(work, "in.mkv"), os.path.join(work, f"slomo{n}.mkv"), SLOMO)
+        seconds = time.perf_counter() - t0
+        launches, mesh = readCounts(), readMeshCounts()
+    got = [np.frombuffer(b, np.uint16).astype(np.int32) for b in cap.frames]
+    pairs = count - 1
+    if frames != count or len(got) != len(single) or len(single) != 2 * count - 1:
+        raise AssertionError(f"mesh video on {n}: {frames} frames in, {len(got)} out, want {len(single)}")
+    single = [f.astype(np.int32) for f in single]
+    lsb = [int(np.abs(a - b).max()) for a, b in zip(got, single)]
+    if max(lsb) > MESH_VIDEO_LSB or mesh["warpSpmd"] != 8 * pairs * n or launches["warp"] != 8 * pairs * n:
+        raise AssertionError(f"mesh video on {n}: {lsb} LSB by frame, launches {launches}, mesh {mesh}")
+    emit(phase="mesh_video", shards=n, steps=SLOMO, size=list(size), frames_out=len(got), seconds=seconds,
+         launches=launches,
+         mesh=mesh, max_lsb_by_frame=lsb, tol_lsb=MESH_VIDEO_LSB,
+         share_differing=float(np.mean([(a != b).mean() for a, b in zip(got, single)])))
+    return mesh["warpSpmd"]
+
+
+def checkMeshVideoCrop(seed):
+    """The slomo stream on 5 frames of 128x128, IFRNet-M in fp32 (TF32 off),
+    on the card under [2] and [4] against the single-device card run, every
+    segment whose shards hold its reach run sharded (``GATHER_FROM_LEVEL`` 5, so
+    the halos of every level are held on the card)."""
+    from moephoto_tpu_torch.models import ifrnet
+    from moephoto_tpu_torch.parallel import sharded
+
+    frames = np.random.RandomState(seed + 5).rand(5, 128, 128, 3).astype(np.float32)
+    opt = ifrnet.getOpt(dict(SLOMO[0]), torch.device("cuda"), torch.float32)
+    outs, errs, gathers, shipped = {}, {}, {}, ifrnet.GATHER_FROM_LEVEL
+    try:
+        ifrnet.GATHER_FROM_LEVEL = 5
+        for n in (None,) + MESH_SIZES:
+            with Meshed(cardMesh(n) if n else None):
+                sharded.resetStats()
+                f = slomoStream(opt, lambda x: x.cpu())
+                got = []
+                for fr in frames:
+                    got += f(torch.from_numpy(fr).cuda())
+                got += f(None)
+            outs[n] = torch.stack(got)
+            if n:
+                errs[n], gathers[n] = float((outs[n] - outs[None]).abs().max()), sharded.stats["gathers"]
+    finally:
+        ifrnet.GATHER_FROM_LEVEL = shipped
+    if outs[None].shape != (9, 128, 128, 3) or max(errs.values()) > MESH_CROP_TOL:
+        raise AssertionError(f"mesh video crop: {tuple(outs[None].shape)}, mesh vs single {errs}")
+    emit(phase="mesh_video_crop", shape=list(outs[None].shape), max_abs_err_by_shards=errs, tol=MESH_CROP_TOL,
+         gathered_segments_by_shards=gathers)
+
+
+class HaloTimer:
+    """While installed: CUDA events around every row window a shard takes
+    (``RowShards.window``: the halo exchange), by IFRNet stage."""
+
+    def __enter__(self):
+        from moephoto_tpu_torch.models.ifrnet import IFRNet
+        from moephoto_tpu_torch.parallel.sharded import RowShards
+
+        self.RowShards, self.IFRNet = RowShards, IFRNet
+        self.window, self.encode, self.decode = RowShards.window, IFRNet.encodeFull, IFRNet.decodePost
+        self.events, self.stage = {}, None
+
+        def window(rs, j, lo, hi):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.window(rs, j, lo, hi)
+            e.record()
+            self.events.setdefault(self.stage, []).append((s, e))
+            return out
+
+        def staged(name, fn):
+            def call(*args, **kw):
+                self.stage = name
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.stage = None
+            return call
+
+        RowShards.window = window
+        IFRNet.encodeFull, IFRNet.decodePost = staged("encode", self.encode), staged("decode", self.decode)
+        return self
+
+    def __exit__(self, *exc):
+        self.RowShards.window = self.window
+        self.IFRNet.encodeFull, self.IFRNet.decodePost = self.encode, self.decode
+        return False
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
+
+
+def shardWarpBound(imgWin, flow):
+    """Least time for one shard's warp: its image window read once, its
+    flow read once, its output written once (as warpBound)."""
+    B, h, w, c = flow.shape[:3] + imgWin.shape[3:]
+    images = 1 if imgWin.stride(0) == 0 else B
+    nbytes = (images * imgWin.shape[1] + B * h) * w * c * imgWin.element_size() + flow.numel() * flow.element_size()
+    tBytes = nbytes / PEAK_BYTES * 1e3
+    tOps = B * h * w * (WARP_FLOP_PER_VALUE * c + WARP_FLOP_PER_PX) / PEAK_FP32_FLOPS * 1e3
+    return max(tOps, tBytes), ("operations" if tOps > tBytes else "bytes")
+
+
+def shardDcnBound(xWin, off, mask, cout):
+    """Least time for one shard's DCN: its window of x read once, its
+    offsets and mask read once, its output written once (as dcnBound)."""
+    B, h, w = off.shape[:3]
+    c, px = xWin.shape[-1], B * h * w
+    nbytes = (xWin.numel() * xWin.element_size() + px * (off.shape[-1] * off.element_size()
+              + mask.shape[-1] * mask.element_size() + cout * xWin.element_size()) + 9 * c * cout * xWin.element_size())
+    peak = PEAK_BF16_FLOPS if xWin.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    tOps, tBytes = 2 * 9 * c * cout * px / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(tOps, tBytes), ("operations" if tOps > tBytes else "bytes")
+
+
+def shardWindows(shards, reach):
+    return [shards.window(j, max(0, a - reach), min(shards.rows, b + reach))
+            for j, (a, b) in enumerate(zip(shards.bounds, shards.bounds[1:]))]
+
+
+def timingMesh(seed, gpu, warpInputs, dcnInputs, lutInput, lutModel):
+    """Sharded against single-device on the one card, in turns (single, 2,
+    4, single): slomo output Mpx/s on device-resident 1080p frames with the
+    halo exchange's ms per stage (the device clock from before the first
+    row window a shard takes to after it: the copies, and the host's time
+    in between wherever the device waited for it) and a profiled chunk's
+    device ms and idle share, and lite x4 input Mpx/s through
+    ModelExec; then each sharded kernel's per-shard median launch at its
+    shapes beside the mean per-shard bound (the single-device kernel's bytes
+    plus the halo's, over the shards) and the plain version on one shard."""
+    from moephoto_tpu_torch.models.ifrnet import getOpt
+    from moephoto_tpu_torch.ops.deform import dcnRowReach, deformConv2dPlain, deformConv2dSpmd
+    from moephoto_tpu_torch.ops.lut import ailutTransformPlain, ailutTransformSpmd
+    from moephoto_tpu_torch.ops.warp import rowReach, warpPlain, warpSpmd
+    from moephoto_tpu_torch.pipeline import registry
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = [torch.rand((H, W, 3), generator=g, device="cuda") for _ in range(4)]
+    opt = getOpt(dict(SLOMO[0]))
+    slomo = []
+    for n in (None,) + MESH_SIZES + (None,):
+        with Meshed(cardMesh(n) if n else None):
+            f = slomoStream(opt, lambda x: x.mean())
+            feed = lambda k: sum(len(f(frames[i % 4])) for i in range(k))  # noqa: E731
+            feed(16)
+            torch.cuda.synchronize()
+            resetMeshCounts()
+            with HaloTimer() as halo:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = feed(16)
+                end.record()
+                torch.cuda.synchronize()
+                wallS = time.perf_counter() - t0
+                haloMs = halo.ms()
+            eventS = start.elapsed_time(end) / 1e3
+            counts = readMeshCounts()
+            wallMs, rows = profileOnce(lambda: feed(8))  # one chunk: 8 pairs
+            deviceMs = sum(t for _, t in rows)
+            slomo.append(dict(shards=n or 1, output_frames=out, output_mpx_per_s=out * H * W / 1e6 / eventS,
+                              seconds_events=eventS, seconds_wall=wallS, mesh=counts,
+                              halo_exchange_ms_per_chunk={k: v / 2 for k, v in haloMs.items() if k},
+                              profiled_chunk_wall_ms=wallMs, profiled_chunk_device_ms=deviceMs,
+                              device_idle_share=(1 - deviceMs / wallMs) if wallMs else None,
+                              top_kernels=[{"name": k[:80], "ms": t} for k, t in rows[:8]]))
+    ex = registry.getSR({"model": "lite", "scale": UPSCALE})
+    x = torch.rand((H, W, 3), generator=g, device="cuda")
+    lite = []
+    for n in (None,) + MESH_SIZES + (None,):
+        with Meshed(cardMesh(n) if n else None):
+            for _ in range(WARMUP):
+                ex(x)
+            ms = cudaTimeMs(lambda: ex(x), ITERS)
+        lite.append(dict(shards=n or 1, input_mpx_per_s=H * W / 1e6 / (ms / 1e3), ms_per_image=ms))
+    emit(phase="mesh_timing", gpu=gpu, slomo=slomo, lite_x4=lite,
+         note="one card: the cost of sharding (halo copies, per-shard launches, host reads), not scaling")
+
+    kernels = {}
+    for n in MESH_SIZES:
+        for key, (img, flow) in warpInputs.items():
+            si, sf = cardShards(img, n), cardShards(flow, n)
+            reach = rowReach(sf.parts, 1) + 1
+            wins = shardWindows(si, reach)
+            bounds = [shardWarpBound(wv, fp) for wv, fp in zip(wins, sf.parts)]
+            ms, rec = medianLaunchMs(lambda: warpSpmd(si, sf), isWarpKernel)
+            a = si.bounds[0]
+            plainMs = cudaTimeMs(lambda: warpPlain(wins[0], sf.parts[0], "border", (a, 0, si.rows)), 3)
+            kernels[f"warpSpmd_{n}_{key}"] = dict(ms=ms, recorded=rec, plain_ms=plainMs, halo_rows=reach,
+                                                  bound_ms=sum(b for b, _ in bounds) / n, bound_by=bounds[0][1],
+                                                  library_ms=None)
+        for lv in ("l3", "l2", "l1"):
+            x, off, mask, weight, bias, dg = dcnInputs[lv]
+            sx, so, sm = cardShards(x, n), cardShards(off, n), cardShards(mask, n)
+            reach = dcnRowReach(so.parts)
+            wins = shardWindows(sx, reach)
+            bounds = [shardDcnBound(wv, o, m, weight.shape[0]) for wv, o, m in zip(wins, so.parts, sm.parts)]
+            ms, rec = medianLaunchMs(lambda: deformConv2dSpmd(sx, so, sm, weight, bias, dg), isDcnKernel)
+            plainMs = cudaTimeMs(lambda: deformConv2dPlain(wins[0], so.parts[0], sm.parts[0], weight, bias, dg,
+                                                           rows=(0, 0, sx.rows)), 2)
+            kernels[f"deformConv2dSpmd_{n}_{lv}"] = dict(ms=ms, recorded=rec, plain_ms=plainMs, halo_rows=reach,
+                                                         bound_ms=sum(b for b, _ in bounds) / n,
+                                                         bound_by=bounds[0][1], library_ms=None)
+        with torch.inference_mode():
+            _, table, vertices = lutModel.generate(lutInput)
+        sl = cardShards(lutInput.contiguous(), n)
+        parts = [p.contiguous() for p in sl.parts]
+        bounds = [lutBound(p, table, vertices) for p in parts]
+        ms, rec = medianLaunchMs(lambda: ailutTransformSpmd(sl, table, vertices), isLutKernel)
+        plainMs = cudaTimeMs(lambda: ailutTransformPlain(parts[0], table, vertices), 3)
+        kernels[f"ailutTransformSpmd_{n}_1080p"] = dict(ms=ms, recorded=rec, plain_ms=plainMs, halo_rows=0,
+                                                        bound_ms=sum(b for b, _ in bounds) / n,
+                                                        bound_by=bounds[0][1], library_ms=None)
+    emit(phase="kernel_timing", gpu=gpu, kernel="warpSpmd+deformConv2dSpmd+ailutTransformSpmd",
+         per_shard_median_launch=kernels, library="none: no PyTorch call computes a row-sharded warp, DCN or LUT")
+    return kernels
+
+
+def driveUnpathed(dcnInputs, lutInput, lutModel, n=2):
+    """K3's tier and K6 through the modules that reach them inside a
+    row-sharded stage, as the JAX package's stage traces do: EDVR's DCN
+    module (``ModulatedDeformConvPack``) and AiLUT's forward under
+    ``spmdTracing()`` on the [n] mesh; neither is on a product path (IconVSR's
+    row-sharded stages are the next slice; ``applyWhole`` is single-device).
+    Returns each wrapper's launches in that run and the outputs' agreement
+    with the single-device modules."""
+    from moephoto_tpu_torch.ops.deform import ModulatedDeformConvPack
+    from moephoto_tpu_torch.parallel import temporal
+
+    x, off, mask, weight, bias, dg = dcnInputs["l1"]
+    dcn = ModulatedDeformConvPack(x.shape[-1], weight.shape[0], dg).to("cuda", x.dtype)
+    with torch.no_grad():
+        dcn.weight.copy_(weight)
+        dcn.bias.copy_(bias)
+    feat = x.flip(0)
+    with torch.inference_mode():
+        wantDcn, wantLut = dcn(x, feat), lutModel(lutInput)
+        with Meshed(cardMesh(n)):
+            resetMeshCounts()
+            temporal._spmdTracing[0] = True
+            try:
+                gotDcn, gotLut = dcn(x, feat), lutModel(lutInput)
+            finally:
+                temporal._spmdTracing[0] = False
+            counts = readMeshCounts()
+    errs = {}
+    holdEqual(errs, "ModulatedDeformConvPack", gotDcn, wantDcn)
+    holdEqual(errs, "AiLUT", gotLut, wantLut)
+    if counts["deformConv2dSpmd"] != n or counts["ailutTransformSpmd"] != n:
+        raise AssertionError(f"modules under spmdTracing on {n} shards launched {counts}")
+    emit(phase="mesh_modules", shards=n, launches=counts, max_abs_err=errs)
+    return counts["deformConv2dSpmd"], counts["ailutTransformSpmd"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1598,7 +2093,7 @@ def main(argv=None) -> int:
         kt = timing(args.seed, smi)
         timingRetouch(args.seed, smi)
         lt = timingLut(args.seed, smi, lutInput, lutModel)
-        warpLaunches, pathInputs = runVideo(work)
+        warpLaunches, pathInputs, slomoFrames = runVideo(work)
         checkVideoCrop(args.seed)
         wt = timingSlomo(args.seed, smi, pathInputs)
         dcnLaunches, dcnInputs = runVsr(work)
@@ -1610,6 +2105,20 @@ def main(argv=None) -> int:
                       liteLaunches(PRESET_W, PRESET_H, 2))
         checkDnCrop(args.seed)
         ct = timingDn(args.seed, smi)
+
+        from PIL import Image
+
+        meshErr = checkMeshKernels(args.seed, pathInputs, dcnInputs, lutInput, lutModel)
+        with Image.open(os.path.join(work, "out.png")) as out:
+            runMeshImage(work, 2, np.asarray(out))
+        k2aLaunches = {n: runMeshVideo(work, n, slomoFrames) for n in MESH_SIZES}
+        slomoFrames = runSingleVideo(work, UHD, UHD_FRAMES)
+        for n in MESH_SIZES:
+            runMeshVideo(work, n, slomoFrames, UHD, UHD_FRAMES)
+        del slomoFrames
+        checkMeshVideoCrop(args.seed)
+        tierLaunches, k6Launches = driveUnpathed(dcnInputs, lutInput, lutModel)
+        mk = timingMesh(args.seed, smi, pathInputs, dcnInputs, lutInput, lutModel)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
@@ -1639,7 +2148,17 @@ def main(argv=None) -> int:
         "bound_by": ct["gate_32x64"]["bound_by"], "library_ms": None,
         "ms_1080p": ct["1080p"]["ms"], "plain_ms_1080p": ct["1080p"]["plain_ms"],
         "bound_ms_1080p": ct["1080p"]["bound_ms"], "cold_ms_1080p": ct["1080p"]["cold_ms"],
-    }]}), flush=True)
+    }] + [{  # the row-sharded wrappers, on cuda:0 x 2: per-shard median launch at the named shape
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
+        "max_abs_err": meshErr, "shards": 2, "shape": shape, **{k: mk[f"{name}_2_{shape}"][k] for k in
+                                                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "ms_4_shards": mk[f"{name}_4_{shape}"]["ms"], "bound_ms_4_shards": mk[f"{name}_4_{shape}"]["bound_ms"],
+    } for name, source, replaces, n, shape in (
+        ("warpSpmd", "moephoto_tpu_torch/csrc/warp.cu", "moephoto_tpu/ops/warp.py:264", k2aLaunches[2],
+         "544x960x32_bfloat16"),
+        ("deformConv2dSpmd", "moephoto_tpu_torch/csrc/dcn.cu", "moephoto_tpu/ops/deform.py:225", tierLaunches, "l1"),
+        ("ailutTransformSpmd", "moephoto_tpu_torch/csrc/ailut.cu", "moephoto_tpu/ops/lutkernel.py:271", k6Launches,
+         "1080p"))]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

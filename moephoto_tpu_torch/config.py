@@ -37,6 +37,11 @@ defaultConfig: Dict[str, tuple] = {
     "ffmpegPath": ("ffmpeg", "external ffmpeg binary for video decode/encode"),
     "tileSize": (0, "0 = per-model default tile size"),
     "tileBatch": (0, "0 = per-model default tiles per model call"),
+    "meshShape": (
+        [],
+        "e.g. [2, 4] for a dp x sp mesh over the first 8 cards; [] = single device "
+        "(with device 'cpu': that many CPU entries, as the sharding tests use)",
+    ),
     "modelDir": ("./model", "root directory of torch checkpoints"),
     "referenceRoot": (
         "",

@@ -30,6 +30,17 @@
 // come from the unclamped coordinate, so a NaN offset gives NaN at its
 // output pixel.
 //
+// Row windows (K3's row-sharded tier, the port of moephoto_tpu/ops/deform.py
+// :225-285): a launch may cover only the output rows [out0, out0 + H) of an
+// image of `full` rows, with x given as its rows [img0, img0 + imgN) (a halo
+// of the sampler's row reach around the shard); offsets and mask are the
+// shard's own rows.  The sampling coordinate is formed from the GLOBAL row,
+// (float)(out0 + y + ky dil - pad) + dy, and a corner is inside when it lies
+// in the global image, so a shard computes the single-device launch's
+// values, row for row; a corner outside the window of x reads zero, which
+// only a non-finite offset (NaN weight) or a halo narrower than the reach
+// can reach.  The single-device launch is out0 = img0 = 0, imgN = full = H.
+//
 // Bound on this card: per output pixel the call must read C values of x,
 // 2 dg 9 offsets and dg 9 mask values and write Cout values: 688 B at
 // C = Cout = 64, dg = 8 in bf16, 0.35 ms for EDVR's full-resolution calls
@@ -154,6 +165,7 @@ struct Params {
   void* out;  // contiguous (B, H, W, Cout) of x's type
   long long total;  // B * H * W
   int H, W, C, Cout, dg, pad, dil;
+  int out0, img0, imgN, full;  // the row window (see the header); x holds imgN rows
 };
 
 // Writes sampled values, rounded to x's type T, to a row of floats (holding
@@ -197,12 +209,13 @@ __device__ __forceinline__ void sampleWith(const Params& P, int k, long long b, 
   const int cg = P.C / P.dg;
   const float dy = tap.dy, dx = tap.dx, m = tap.m;
   const int ky = k / 3, kx = k % 3;
-  const float sy = __fadd_rn((float)(yq + ky * P.dil - P.pad), dy);
+  const float sy = __fadd_rn((float)(P.out0 + yq + ky * P.dil - P.pad), dy);
   const float sx = __fadd_rn((float)(xq + kx * P.dil - P.pad), dx);
   const float wy = __fsub_rn(sy, floorf(sy)), wx = __fsub_rn(sx, floorf(sx));
-  const int y0 = (int)floorf(clampCoord(sy, P.H)), x0 = (int)floorf(clampCoord(sx, P.W));
-  const int y1 = y0 + 1, x1 = x0 + 1;
-  const bool inY0 = y0 >= 0 && y0 < P.H, inY1 = y1 >= 0 && y1 < P.H;
+  const int yg0 = (int)floorf(clampCoord(sy, P.full)), x0 = (int)floorf(clampCoord(sx, P.W));
+  const int y0 = yg0 - P.img0, y1 = y0 + 1, x1 = x0 + 1;  // rows of the window of x
+  const bool inY0 = yg0 >= 0 && yg0 < P.full && y0 >= 0 && y0 < P.imgN;
+  const bool inY1 = yg0 + 1 >= 0 && yg0 + 1 < P.full && y1 >= 0 && y1 < P.imgN;
   const bool inX0 = x0 >= 0 && x0 < P.W, inX1 = x1 >= 0 && x1 < P.W;
   const bool in00 = inY0 && inX0, in01 = inY0 && inX1, in10 = inY1 && inX0, in11 = inY1 && inX1;
   const T* x = reinterpret_cast<const T*>(P.x) + b * P.xs.b + (long long)g * cg;
@@ -479,12 +492,16 @@ int launchMmaKernel(const Params& P, const void* wPacked, cudaStream_t s) {
   auto kernel = dcnMmaKernel<NT>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static int smsOf[64] = {};  // SM count per card, read once each
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 0 && dev < 64 && smsOf[dev] != 0) {
+    sms = smsOf[dev];
+  } else {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
+    if (dev >= 0 && dev < 64) smsOf[dev] = sms;
   }
   const int tilesX = (P.W + kMmaTileW - 1) / kMmaTileW, tilesY = (P.H + kMmaTileH - 1) / kMmaTileH;
   const long long nTiles = P.total / ((long long)P.H * P.W) * tilesX * tilesY;
@@ -524,9 +541,12 @@ int launch(const Params& P, cudaStream_t s) {
 
 extern "C" {
 
-// Types: 0 fp32, 1 bf16.  x (B, H, W, C) with element strides (xb, xh, xw,
-// 1); offset (B, H, W, 2 dg 9) and mask (B, H, W, dg 9) likewise; bias
-// (Cout,) fp32 or null; out contiguous (B, H, W, Cout) of x's type.
+// Types: 0 fp32, 1 bf16.  x (B, imgN, W, C) with element strides (xb, xh,
+// xw, 1), the rows [img0, img0 + imgN) of an image of `full` rows; offset
+// (B, H, W, 2 dg 9) and mask (B, H, W, dg 9) likewise, for the output rows
+// [out0, out0 + H); bias (Cout,) fp32 or null; out contiguous (B, H, W,
+// Cout) of x's type.  The single-device call is out0 = img0 = 0, imgN =
+// full = H.
 // instance 0 (CUDA cores): taps (9, C, Cout) contiguous of x's type.
 // instance 1 (tensor cores): x bf16, C % 16 == 0, Cout % 16 == 0, (C / dg) %
 // 8 == 0, x and its strides aligned to 16 bytes, taps packed as dcnMmaKernel
@@ -534,7 +554,9 @@ extern "C" {
 int dcnForward(int instance, int xType, int offType, int maskType, const void* x, long long xb, long long xh,
                long long xw, const void* off, long long ob, long long oh, long long ow, const void* mask,
                long long mb, long long mh, long long mw, const void* taps, const float* bias, void* out,
-               int B, int H, int W, int C, int Cout, int dg, int pad, int dil, void* stream) {
+               int B, int H, int W, int C, int Cout, int dg, int pad, int dil, int out0, int img0, int imgN,
+               int full, void* stream) {
+  if (out0 < 0 || out0 + H > full || img0 < 0 || imgN < 1 || img0 + imgN > full) return cudaErrorInvalidValue;
   if (B < 0 || H < 1 || W < 1 || C < 1 || C > kMaxC || Cout < 1 || Cout > kMaxCout || dg < 1 || C % dg != 0 ||
       xType < 0 || xType > 1 || offType < 0 || offType > 1 || maskType < 0 || maskType > 1 || instance < 0 ||
       instance > 1)
@@ -560,6 +582,10 @@ int dcnForward(int instance, int xType, int offType, int maskType, const void* x
   P.dg = dg;
   P.pad = pad;
   P.dil = dil;
+  P.out0 = out0;
+  P.img0 = img0;
+  P.imgN = imgN;
+  P.full = full;
   cudaStream_t s = (cudaStream_t)stream;
   if (instance == 1) {
     const bool fits = xType == 1 && C % 16 == 0 && Cout % 16 == 0 && (C / dg) % 8 == 0 &&

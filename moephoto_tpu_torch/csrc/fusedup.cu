@@ -783,15 +783,18 @@ int launchWgmma(const MmaArgs& a, const void* headFrag) {
   return cudaGetLastError();
 }
 
+// The current card's SM count, read once per card.
 int smCount(int* sms) {
-  static int cached = 0;
-  if (cached == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cached[dev] == 0) {
+    e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
   }
-  *sms = cached;
+  *sms = cached[dev];
   return cudaSuccess;
 }
 

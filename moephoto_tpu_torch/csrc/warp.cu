@@ -35,6 +35,18 @@
 // the channels with scalar __ldg.  Image and flow take any batch, row and
 // pixel strides with unit channel stride, so a batch broadcast by
 // expand() (stride 0) is read in place.  The output is contiguous NHWC.
+//
+// Row windows (K2a, the row-sharded form of moephoto_tpu/ops/warp.py:264
+// warpBoundedSpmd and :227 backWarpBoundedSpmd): a launch may cover only
+// the output rows [out0, out0 + H) of an image of `full` rows, with the
+// image given as its rows [img0, img0 + imgN), a halo around the shard.
+// The tap coordinate is formed from the GLOBAL row, (float)(out0 + y) + v,
+// and the border clamp and the zeros test refer to the global image, so a
+// shard computes the same fp32 values as the single-device launch, row for
+// row; a tap row is then clamped into the window, which only a
+// non-finite flow (NaN weight, NaN result) or a halo narrower than the
+// flow's reach can reach.  The single-device launch is out0 = img0 = 0,
+// imgN = full = H.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,6 +109,11 @@ struct Strides {
   long long b, h, w;  // elements; the channel stride is 1
 };
 
+// Rows of the launch in the global image (see the header).
+struct Rows {
+  int out0, img0, imgN, full;
+};
+
 // The four taps of one output pixel: element offsets of channel 0 in the
 // image, whether each lies inside it (zeros mode), and the weights.
 struct Taps {
@@ -111,13 +128,14 @@ __device__ __forceinline__ float clampCoord(float s, int n) {
 
 template <typename TF>
 __device__ __forceinline__ Taps tapsAt(const TF* flow, Strides fs, Strides is, long long b, int y, int x,
-                                       int H, int W, bool zeros) {
+                                       int W, Rows R, bool zeros) {
   const TF* f = flow + b * fs.b + y * fs.h + x * fs.w;
   const float sx = __fadd_rn((float)x, loadF(f));
-  const float sy = __fadd_rn((float)y, loadF(f + 1));
+  const float sy = __fadd_rn((float)(R.out0 + y), loadF(f + 1));
   Taps t;
   t.wx = __fsub_rn(sx, floorf(sx));
   t.wy = __fsub_rn(sy, floorf(sy));
+  const int H = R.full;
   const int x0 = (int)floorf(clampCoord(sx, W)), y0 = (int)floorf(clampCoord(sy, H));
   const int x1 = x0 + 1, y1 = y0 + 1;
   const bool inX0 = x0 >= 0 && x0 < W, inX1 = x1 >= 0 && x1 < W;
@@ -127,7 +145,9 @@ __device__ __forceinline__ Taps tapsAt(const TF* flow, Strides fs, Strides is, l
   t.in10 = !zeros || (inY1 && inX0);
   t.in11 = !zeros || (inY1 && inX1);
   const long long cx0 = min(max(x0, 0), W - 1), cx1 = min(max(x1, 0), W - 1);
-  const long long cy0 = min(max(y0, 0), H - 1), cy1 = min(max(y1, 0), H - 1);
+  // the global clamp, then into the window of image rows
+  const long long cy0 = min(max(min(max(y0, 0), H - 1) - R.img0, 0), R.imgN - 1);
+  const long long cy1 = min(max(min(max(y1, 0), H - 1) - R.img0, 0), R.imgN - 1);
   const long long base = b * is.b;
   t.o00 = base + cy0 * is.h + cx0 * is.w;
   t.o01 = base + cy0 * is.h + cx1 * is.w;
@@ -147,7 +167,7 @@ __device__ __forceinline__ float blend(float v00, float v01, float v10, float v1
 template <typename TI, typename TF>
 __global__ void __launch_bounds__(kThreads)
 warpVecKernel(const TI* __restrict__ img, Strides is, const TF* __restrict__ flow, Strides fs,
-              TI* __restrict__ out, long long total, int H, int W, int C, bool zeros) {
+              TI* __restrict__ out, long long total, int H, int W, int C, Rows R, bool zeros) {
   constexpr int V = Vec<TI>::N;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= total) return;
@@ -157,7 +177,7 @@ warpVecKernel(const TI* __restrict__ img, Strides is, const TF* __restrict__ flo
   const int x = (int)(p % W);
   const int y = (int)((p / W) % H);
   const long long b = p / ((long long)W * H);
-  const Taps k = tapsAt(flow, fs, is, b, y, x, H, W, zeros);
+  const Taps k = tapsAt(flow, fs, is, b, y, x, W, R, zeros);
   const int c = g * V;
   float a[V], v01[V], v10[V], v11[V];
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -174,13 +194,13 @@ warpVecKernel(const TI* __restrict__ img, Strides is, const TF* __restrict__ flo
 template <typename TI, typename TF>
 __global__ void __launch_bounds__(kThreads)
 warpPixelKernel(const TI* __restrict__ img, Strides is, const TF* __restrict__ flow, Strides fs,
-                TI* __restrict__ out, long long total, int H, int W, int C, bool zeros) {
+                TI* __restrict__ out, long long total, int H, int W, int C, Rows R, bool zeros) {
   const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (p >= total) return;
   const int x = (int)(p % W);
   const int y = (int)((p / W) % H);
   const long long b = p / ((long long)W * H);
-  const Taps k = tapsAt(flow, fs, is, b, y, x, H, W, zeros);
+  const Taps k = tapsAt(flow, fs, is, b, y, x, W, R, zeros);
   for (int c = 0; c < C; ++c) {
     const float v00 = k.in00 ? loadF(img + k.o00 + c) : 0.0f;
     const float v01 = k.in01 ? loadF(img + k.o01 + c) : 0.0f;
@@ -192,8 +212,10 @@ warpPixelKernel(const TI* __restrict__ img, Strides is, const TF* __restrict__ f
 
 template <typename TI, typename TF>
 int launch(const void* img, Strides is, const void* flow, Strides fs, void* out, int B, int H, int W,
-           int C, int zeros, void* stream) {
+           int C, Rows R, int zeros, void* stream) {
   if (B < 0 || H < 1 || W < 1 || C < 1 || C > kMaxC) return cudaErrorInvalidValue;
+  if (R.out0 < 0 || R.out0 + H > R.full || R.img0 < 0 || R.imgN < 1 || R.img0 + R.imgN > R.full)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   constexpr int V = Vec<TI>::N;
   const bool aligned = C % V == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
@@ -206,10 +228,10 @@ int launch(const void* img, Strides is, const void* flow, Strides fs, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   if (aligned) {
     warpVecKernel<TI, TF><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const TI*)img, is, (const TF*)flow, fs, (TI*)out, total, H, W, C, zeros != 0);
+        (const TI*)img, is, (const TF*)flow, fs, (TI*)out, total, H, W, C, R, zeros != 0);
   } else {
     warpPixelKernel<TI, TF><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const TI*)img, is, (const TF*)flow, fs, (TI*)out, total, H, W, C, zeros != 0);
+        (const TI*)img, is, (const TF*)flow, fs, (TI*)out, total, H, W, C, R, zeros != 0);
   }
   return cudaGetLastError();
 }
@@ -218,22 +240,25 @@ int launch(const void* img, Strides is, const void* flow, Strides fs, void* out,
 
 extern "C" {
 
-// img: (B, H, W, C) of imgType (0 fp32, 1 bf16) with element strides
-// (ib, ih, iw, 1); flow: (B, H, W, 2) of flowType with strides
-// (fb, fh, fw, 1); out: contiguous (B, H, W, C) of imgType.  zeros: 0 for
-// border padding, 1 for zeros padding.  Returns a cudaError_t.
+// img: (B, imgN, W, C) of imgType (0 fp32, 1 bf16) with element strides
+// (ib, ih, iw, 1), the rows [img0, img0 + imgN) of an image of `full` rows;
+// flow: (B, H, W, 2) of flowType with strides (fb, fh, fw, 1), for the
+// output rows [out0, out0 + H); out: contiguous (B, H, W, C) of imgType.
+// zeros: 0 for border padding, 1 for zeros padding.  The single-device warp
+// is out0 = img0 = 0, imgN = full = H.  Returns a cudaError_t.
 int warpBilinear(int imgType, int flowType, const void* img, long long ib, long long ih, long long iw,
                  const void* flow, long long fb, long long fh, long long fw, void* out, int B, int H,
-                 int W, int C, int zeros, void* stream) {
+                 int W, int C, int out0, int img0, int imgN, int full, int zeros, void* stream) {
   const Strides is{ib, ih, iw}, fs{fb, fh, fw};
+  const Rows R{out0, img0, imgN, full};
   if (imgType == 0 && flowType == 0)
-    return launch<float, float>(img, is, flow, fs, out, B, H, W, C, zeros, stream);
+    return launch<float, float>(img, is, flow, fs, out, B, H, W, C, R, zeros, stream);
   if (imgType == 0 && flowType == 1)
-    return launch<float, __nv_bfloat16>(img, is, flow, fs, out, B, H, W, C, zeros, stream);
+    return launch<float, __nv_bfloat16>(img, is, flow, fs, out, B, H, W, C, R, zeros, stream);
   if (imgType == 1 && flowType == 0)
-    return launch<__nv_bfloat16, float>(img, is, flow, fs, out, B, H, W, C, zeros, stream);
+    return launch<__nv_bfloat16, float>(img, is, flow, fs, out, B, H, W, C, R, zeros, stream);
   if (imgType == 1 && flowType == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(img, is, flow, fs, out, B, H, W, C, zeros, stream);
+    return launch<__nv_bfloat16, __nv_bfloat16>(img, is, flow, fs, out, B, H, W, C, R, zeros, stream);
   return cudaErrorInvalidValue;
 }
 

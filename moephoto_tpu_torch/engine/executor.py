@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.engine.tiling import TileSpec, ceilTo, reflectPadHW, tiledApply
+from moephoto_tpu_torch.parallel.mesh import activeMesh, replicaOn
 
 # The 8 dihedral symmetries used by self-ensemble, on HWC.
 _transpose = lambda x: x.transpose(0, 1)
@@ -79,18 +80,19 @@ class ModelExec:
 
     def _tileFn(self, t: torch.Tensor) -> torch.Tensor:
         b, th, tw, c = t.shape
+        model = replicaOn(self.model, t.device)  # a mesh device's tiles: the model's copy there
         if self.pack:
             p = self.pack
             if (b * c) % p:
                 raise ValueError(f"{b} tiles x {c} channels do not pack by {p}")
             planes = t.permute(0, 3, 1, 2).reshape(b * c // p, p, th, tw).permute(0, 2, 3, 1)
-            out = self.model(planes)
+            out = model(planes)
             _, oh, ow, oc = out.shape
             return out.permute(0, 3, 1, 2).reshape(b, c, oh, ow).permute(0, 2, 3, 1)
         if not self.channelSplit:
-            return self.model(t)
+            return model(t)
         planes = t.permute(0, 3, 1, 2).reshape(b * c, th, tw, 1)
-        out = self.model(planes)
+        out = model(planes)
         _, oh, ow, _ = out.shape
         return out.reshape(b, c, oh, ow).permute(0, 2, 3, 1)
 
@@ -106,7 +108,8 @@ class ModelExec:
         x = self.prepare(inp) if self.prepare is not None else inp
         x = x.to(self.dtype)
         outC = self.outC or x.shape[-1]
-        run = lambda img: tiledApply(img, self._tileFn, self.spec, outC)
+        mesh = activeMesh()  # config.meshShape's mesh spreads the tile batch; None: single device
+        run = lambda img: tiledApply(img, self._tileFn, self.spec, outC, mesh)
         y = run(x)
         if self.ensemble:
             for fwd, inv in ENSEMBLE_TRANSFORMS[: self.ensemble]:
@@ -119,7 +122,9 @@ class ModelExec:
     @torch.inference_mode()
     def applyWhole(self, x) -> torch.Tensor:
         """Un-tiled path (for models whose output depends on the whole
-        image): pad to alignment, run once, crop."""
+        image): pad to alignment, run once, crop.  Single-device, as in the
+        JAX package (``engine/executor.py:189-195``): there is no tile batch
+        to spread, and ``config.meshShape`` only reaches the tiled path."""
         inp = self._input(x)
         x = self.prepare(inp) if self.prepare is not None else inp
         x = x.to(self.dtype)

@@ -115,13 +115,36 @@ def reflectPadHW(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     return y.permute(1, 2, 0)
 
 
+def _meshChunk(fn: Callable, tiles: List[torch.Tensor], batch: int, devices, home) -> torch.Tensor:
+    """One chunk of up to ``batch * len(devices)`` tiles over a mesh: each
+    device takes ``batch`` of them (the last padded by repeating its last
+    tile, so every model call has the single-device shape) and the outputs
+    come back to ``home``; a device with no tile of the chunk idles."""
+    from moephoto_tpu_torch.parallel.sharded import stats
+
+    outs = []
+    for j, dev in enumerate(devices):
+        sub = tiles[j * batch : (j + 1) * batch]
+        if not sub:
+            break
+        n = len(sub)
+        sub += sub[-1:] * (batch - n)
+        outs.append(fn(torch.stack(sub).to(dev, non_blocking=True))[:n].to(home, non_blocking=True))
+        stats["tileCalls"][j] = stats["tileCalls"].get(j, 0) + 1
+    return torch.cat(outs)
+
+
 def tiledApply(
-    x: torch.Tensor, fn: Callable, spec: TileSpec, outC: int | None = None
+    x: torch.Tensor, fn: Callable, spec: TileSpec, outC: int | None = None, mesh=None
 ) -> torch.Tensor:
     """Tiled application of a batched model ``fn`` to an (H, W, C) image.
 
-    ``fn``: (B, th, tw, C) -> (B, th*scale, tw*scale, outC).  Returns the
-    blended (H*scale, W*scale, outC) image in fp32.
+    ``fn``: (B, th, tw, C) -> (B, th*scale, tw*scale, outC), on the device
+    of its input.  Returns the blended (H*scale, W*scale, outC) image in
+    fp32.  With a ``mesh`` (``parallel/mesh.py``) a chunk grows to ``batch``
+    tiles per mesh device, as the JAX engine's ``_chunked`` shards its tile
+    batch: tiles are independent halo-padded work, so this is exact data
+    parallelism; the blend stays on ``x``'s device.
     """
     h, w, c = x.shape
     outC = outC or c
@@ -151,11 +174,16 @@ def tiledApply(
     canvas = torch.zeros((oH, oW, outC), dtype=torch.float32, device=x.device)
     weight = torch.zeros((oH, oW, 1), dtype=torch.float32, device=x.device)
     n, batch = len(places), spec.batch
-    for start in range(0, n, batch):
-        chunk = places[start : start + batch]
+    devices = mesh.flat if mesh is not None else None
+    per = batch * (len(devices) if devices else 1)
+    for start in range(0, n, per):
+        chunk = places[start : start + per]
         tiles = [xp[y : y + th, xc : xc + tw] for y, xc, _ in chunk]
-        tiles += tiles[-1:] * (batch - len(chunk))  # one model shape per call
-        out = fn(torch.stack(tiles))
+        if devices:
+            out = _meshChunk(fn, tiles, batch, devices, x.device)
+        else:
+            tiles += tiles[-1:] * (batch - len(chunk))  # one model shape per call
+            out = fn(torch.stack(tiles))
         if out.shape[1:3] != (oth, otw):
             raise ValueError(f"tile output {tuple(out.shape)} != ({oth}, {otw})")
         for (y, xc, edges), tileOut in zip(chunk, out):

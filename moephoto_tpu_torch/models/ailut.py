@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from moephoto_tpu_torch.models.api import fullFp32, resizeBilinear
-from moephoto_tpu_torch.ops.lut import ailutTransform
+from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformSpmd
+from moephoto_tpu_torch.parallel.temporal import spmdTracing
 
 TPAMI_WIDTHS = (16, 32, 64, 128, 128)
 
@@ -136,6 +137,8 @@ class AiLUT(nn.Module):
 
     def forward(self, imgs: torch.Tensor) -> torch.Tensor:
         _, luts, vertices = self.generate(imgs)
+        if spmdTracing():  # inside a row-sharded stage: K6 (moephoto_tpu/models/ailut.py:121-154)
+            return ailutTransformSpmd(imgs.contiguous(), luts, vertices)
         return ailutTransform(imgs.contiguous(), luts, vertices)
 
 

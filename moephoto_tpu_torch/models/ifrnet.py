@@ -16,6 +16,7 @@ them (channels-last in memory on the card).
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,7 +28,11 @@ from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.engine.stream import InfiniteSource, RowRef, Stream, StreamGraph, stackBatch
 from moephoto_tpu_torch.models.api import prelu, resizeBilinear
 from moephoto_tpu_torch.models.streamcommon import StreamOpt, alignPad, makeStreamFunc
-from moephoto_tpu_torch.ops.warp import warp
+from moephoto_tpu_torch.ops.warp import rowReach, warp, warpSpmd
+from moephoto_tpu_torch.parallel import sharded
+from moephoto_tpu_torch.parallel.mesh import replicaOn
+from moephoto_tpu_torch.parallel.sharded import RowShards, rowSegment, scaleBounds, zipShards
+from moephoto_tpu_torch.parallel.temporal import rowStage
 from moephoto_tpu_torch.progress import Node
 
 Channels = dict(
@@ -66,11 +71,45 @@ def decoderChannels(size: str) -> List[Tuple[int, int, int]]:
     return out
 
 
-def warpExact(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warpExact(img, flow, reach: Optional[int] = None):
     """IFRNet's Warp (IFRNet.py:19-35): its kw/kh normalisation and
     align_corners=True cancel, so it samples at exactly x + u, border
-    padding."""
+    padding.  Row shards take K2a (:func:`ops.warp.warpSpmd`), as the JAX
+    package's row-sharded stages take ``warpBoundedSpmd``; ``reach`` is the
+    flows' row reach when the caller read it once for a pair of warps."""
+    if isinstance(img, RowShards):
+        return warpSpmd(img, flow, "border", reach)
     return warp(img, flow, "border")
+
+
+# Row-sharded stages (``moephoto_tpu/models/ifrnet.py:510-575`` under a mesh):
+# frames are padded to ALIGN rows (``doSlomo``), so row shards of multiples of
+# ALIGN rows split every pyramid level at whole rows.  Each segment's halo is
+# its row reach in input rows:
+#   an encoder level (conv k/2 -> conv 3/1): k // 2 rows for the first conv
+#   and one row of its output, two input rows, for the second, rounded up to
+#   an even count so the crop is whole output rows;
+#   a decoder level (ConvRelu -> ResBlock of five 3x3 convs -> ConvTranspose
+#   4/2/1): six convs of one row each and one row for the transposed conv;
+#   the 2x bilinear resize of the up-flows: one row.
+# A segment whose input lies at pyramid level GATHER_FROM_LEVEL or coarser
+# (1/8 and 1/16 of the frame's rows) runs gathered, at any resolution: the
+# flows are estimated there and upsampled 8 and 16 times, so a one-ulp change
+# there moves the whole frame, and such a map is small work to shard.  cuDNN
+# picks its algorithm by shape, and in bf16 that can round a value one ulp
+# apart: at 1080p on 2 shards the 1/16 level's transposed conv did so for
+# 0.008 % of its values on a 41-row slab.  Sharding the 1/8-level segments
+# left interpolated frames up to 0.018 apart at 1080p and 0.015 at 2160p on 4
+# shards; gathering them gave 0 LSB at 1080p and 2160p on 2 and 4 shards
+# (PERF.md).
+ALIGN = 16
+DEC_HALO = 7
+RESIZE_HALO = 1
+GATHER_FROM_LEVEL = 3  # pyramid level i holds the frame's rows / 2^i
+
+
+def encoderHalo(k: int) -> int:
+    return -(-(k // 2 + 2) // 2) * 2
 
 
 class ConvRelu(nn.Sequential):
@@ -185,13 +224,38 @@ class IFRNet(nn.Module):
         self.encoder = Encoder(size)
         self.decoder = Decoder(size)
 
-    def encodeFull(self, frames: torch.Tensor):
-        """frames (r, H, W, 3) fp32 -> (means (r, 1, 1, 1) fp32, normalised
-        frames fp32, the 4 feature levels in the model's dtype)."""
+    # Each frame's mean is summed in fp64 and rounded once to fp32: a
+    # decoded frame's values are multiples of 2^-16, whose fp64 sums are
+    # exact in any order, so the sharded stage's per-shard sums give the
+    # single-device mean bit for bit (an fp32 sum would not, and in bf16 a
+    # mean one ulp apart moves roundings through the whole network).
+    def _encodeFullPlain(self, frames: torch.Tensor):
         dtype = self.encoder.pyramids[0][0][0].weight.dtype
-        m = frames.float().mean(dim=(1, 2, 3), keepdim=True)
+        n = frames[0].numel()
+        m = (frames.sum(dim=(1, 2, 3), keepdim=True, dtype=torch.float64) / n).float()
         inpN = frames - m.to(frames.dtype)
         return m, inpN, self.encoder(inpN.to(dtype))
+
+    def _encodeFullSharded(self, frames: RowShards):
+        """The encoder stage on row shards: the means summed per shard (in
+        fp64, as above) and combined on the first device; each pyramid level
+        a segment of :func:`encoderHalo` rows."""
+        dtype = self.encoder.pyramids[0][0][0].weight.dtype
+        home = frames.parts[0].device
+        total = torch.stack([p.sum(dim=(1, 2, 3), dtype=torch.float64).to(home) for p in frames.parts]).sum(0)
+        m = (total / (frames.rows * frames.shape[2] * frames.shape[3])).float().reshape(-1, 1, 1, 1)
+        inpN = frames.map(lambda p: p - m.to(p.device, p.dtype))
+        cur, feats = inpN.map(lambda p: p.to(dtype)), []
+        for i, level in enumerate(self.encoder.pyramids):
+            nchw = lambda t, level=level: replicaOn(level, t.device)(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            cur = rowSegment(nchw, cur, encoderHalo(level[0][0].kernel_size[0]), Fraction(1, 2), i >= GATHER_FROM_LEVEL)
+            feats.append(cur)
+        return m, inpN, feats[::-1]
+
+    # frames (r, H, W, 3) fp32 -> (means (r, 1, 1, 1) fp32, normalised frames
+    # fp32, the 4 feature levels in the model's dtype, smallest first).  Under a
+    # mesh the rows shard (multiples of ALIGN) and the levels stay row shards.
+    encodeFull = rowStage(_encodeFullPlain, _encodeFullSharded, (None, 1), (None, None, 1), align=ALIGN)
 
     def _flowEnsemble(self, level: DecoderLevel, xF: torch.Tensor, n: int):
         """Sum of inverse-transformed flow-only decodes over the first
@@ -261,11 +325,7 @@ class IFRNet(nn.Module):
         merged = upMask * (img0w - img1w) + img1w + meanP.to(decoded.dtype)
         return (merged + upRes).float().clamp(0.0, 1.0)
 
-    def decodePost(self, feats, embt, pairN, means, ensemble: int = 0) -> torch.Tensor:
-        """Decoder and merge for r pairs with k times each -> (r, k, H, W, 3),
-        one pair after another, as the JAX package's chunk program unrolls
-        them: each warp runs at one pair's shapes.  (:meth:`decode` and
-        :meth:`postOut` also take the r pairs as one batch.)"""
+    def _decodePostPlain(self, feats, embt, pairN, means, ensemble: int = 0) -> torch.Tensor:
         dtype = feats[0].dtype
         preds = []
         for i in range(embt.shape[0]):
@@ -273,6 +333,90 @@ class IFRNet(nn.Module):
             dec = self.decode([f[i : i + 1] for f in feats], t.to(dtype), ensemble)
             preds.append(self.postOut(pairN[i : i + 1], means[i : i + 1], t, dec))
         return torch.stack(preds)
+
+    def _decodeSharded(self, feats: List[RowShards], embt: torch.Tensor, ensemble: int) -> RowShards:
+        """:meth:`decode` on row shards (the levels (r, 2, h, w, c) on axis 2)
+        -> (r * k, H, W, 8) on axis 1: each level a segment of DEC_HALO rows,
+        the warps through K2a, the up-flows' resize a segment of RESIZE_HALO
+        rows.  The flow ensemble's transposed decodes run gathered."""
+        r, k = embt.shape
+        f0 = feats[0]
+        x0 = f0.map(lambda p: _repeatK(torch.cat([p[:, 0], p[:, 1]], -1), k), axis=1)
+        embtMap = x0.map(lambda p: embt.to(p.device).reshape(r * k, 1, 1, 1).to(p.dtype)
+                         .expand(r * k, p.shape[1], p.shape[2], 1))
+        args: Tuple = (x0, embtMap)
+        for i, level in enumerate(self.decoder.decoders):
+            if i:
+                ft = feats[i]
+                reach = rowReach(upFlow0.parts + upFlow1.parts, 1)  # one host read for both warps
+                f0w = warpExact(ft.map(lambda p: _repeatK(p[:, 0], k), axis=1), upFlow0, reach)
+                f1w = warpExact(ft.map(lambda p: _repeatK(p[:, 1], k), axis=1), upFlow1, reach)
+                args = (ftRes, f0w, f1w, upFlow0, upFlow1)
+            xF = zipShards(lambda *ps: torch.cat(ps, -1), *args)
+            coarse = 4 - i >= GATHER_FROM_LEVEL  # decoder level i's input (and its up-flows' resize's) is at 4 - i
+            out = rowSegment(lambda t, level=level: replicaOn(level, t.device)(t), xF, DEC_HALO, 2, coarse)
+            if ensemble:
+                sharded.stats["gathers"] += 1
+                whole = xF.gather()
+                ens = RowShards.split(self._flowEnsemble(replicaOn(level, whole.device), whole, ensemble),
+                                      out.devices, 1, bounds=out.bounds)
+                out = zipShards(lambda o, e: torch.cat([(o[..., :4] + e) / (ensemble + 1), o[..., 4:]], -1),
+                                out, ens)
+            f0_, f1_ = out.map(lambda p: p[..., :2]), out.map(lambda p: p[..., 2:4])
+            ftRes = out.map(lambda p: p[..., 4:])
+            if i:
+                up = lambda t: resizeBilinear(t, 2 * t.shape[1], 2 * t.shape[2])
+                addUp = lambda f, u: zipShards(lambda a, b: a + 2.0 * b, f,
+                                               rowSegment(up, u, RESIZE_HALO, 2, coarse))
+                f0_, f1_ = addUp(f0_, upFlow0), addUp(f1_, upFlow1)
+            upFlow0, upFlow1 = f0_, f1_
+        return zipShards(lambda a, b, c: torch.cat([a, b, c], -1), upFlow0, upFlow1, ftRes)
+
+    @staticmethod
+    def _postOutSharded(pairN: RowShards, means: torch.Tensor, embt: torch.Tensor, decoded: RowShards) -> RowShards:
+        """:meth:`postOut` on row shards (pairN on axis 2, decoded on axis 1)
+        -> (r * k, H, W, 3) on axis 1, the warps through K2a."""
+        r, k = embt.shape
+        e = embt.float().reshape(r, k, 1, 1, 1)
+        meanP = ((1 - e) * means[:, 0, None] + e * means[:, 1, None]).reshape(r * k, 1, 1, 1)
+        reach = rowReach(decoded.parts, [1, 3])  # both flows' v, one host read for both warps
+        img0w = warpExact(pairN.map(lambda p: _repeatK(p[:, 0], k), axis=1), decoded.map(lambda p: p[..., :2]), reach)
+        img1w = warpExact(pairN.map(lambda p: _repeatK(p[:, 1], k), axis=1), decoded.map(lambda p: p[..., 2:4]),
+                          reach)
+
+        def merge(d, a, b):
+            merged = torch.sigmoid(d[..., 4:5]) * (a - b) + b + meanP.to(d.device, d.dtype)
+            return (merged + d[..., 5:]).float().clamp(0.0, 1.0)
+
+        return zipShards(merge, decoded, img0w, img1w)
+
+    def _decodePostSharded(self, feats, embt, pairN, means, ensemble: int = 0) -> RowShards:
+        """The decode stage on row shards: ``pairN`` cut at multiples of
+        ALIGN rows over the video mesh (or given so), the levels at those
+        bounds scaled; pair after pair as :meth:`decodePost`."""
+        from moephoto_tpu_torch.parallel.temporal import videoMesh
+
+        if not isinstance(pairN, RowShards):
+            pairN = RowShards.split(pairN, videoMesh().flat, 2, ALIGN)
+        H = pairN.rows
+        feats = [f if isinstance(f, RowShards) else
+                 RowShards.split(f, pairN.devices, 2, bounds=scaleBounds(pairN.bounds, Fraction(f.shape[2], H)))
+                 for f in feats]
+        dtype = feats[0].parts[0].dtype
+        preds = []
+        for i in range(embt.shape[0]):
+            t = embt[i : i + 1]
+            one = lambda x: x.map(lambda p: p[i : i + 1])
+            dec = self._decodeSharded([one(f) for f in feats], t.to(dtype), ensemble)
+            preds.append(self._postOutSharded(one(pairN), means[i : i + 1], t, dec))
+        return zipShards(lambda *ps: torch.stack(ps), *preds, axis=2)
+
+    # Decoder and merge for r pairs with k times each -> (r, k, H, W, 3), one
+    # pair after another, as the JAX package's chunk program unrolls them: each
+    # warp runs at one pair's shapes.  (:meth:`decode` and :meth:`postOut` also
+    # take the r pairs as one batch.)  Under a mesh it runs on row shards, the
+    # levels as the encoder stage left them, and the predictions are gathered.
+    decodePost = rowStage(_decodePostPlain, _decodePostSharded, (None,) * 6, None)
 
 
 def loadCheckpoint(raw: dict) -> dict:
@@ -317,9 +461,14 @@ class EmbtState(InfiniteSource):
 
 
 def _pyrLvl0(item) -> torch.Tensor:
-    """Level-0 feature map of a (pyramid, i) reference item."""
+    """Level-0 feature map of a (pyramid, i) reference item (gathered, and
+    counted, when the level is row shards)."""
     pyr, i = item
-    return pyr[0][i]
+    level = pyr[0]
+    if isinstance(level, RowShards):
+        sharded.stats["gathers"] += 1
+        level = level.gather()
+    return level[i]
 
 
 class Deduper:
@@ -443,10 +592,17 @@ def doSlomo(func, node, opt: IFRNetOpt):
         """4 levels of (r, 2, h, w, c) from r windows of (pyramid, i)
         items: per level each column is one run-merged slice, and one
         stack along axis 1 pairs them."""
+        def pair(l, part=lambda x: x):
+            cols = [stackBatch([RowRef(part(w[s][0][l]), w[s][1]) for w in wins]) for s in (0, 1)]
+            return torch.stack(cols, dim=1)
+
         out = []
         for l in range(4):
-            cols = [stackBatch([RowRef(w[s][0][l], w[s][1]) for w in wins]) for s in (0, 1)]
-            out.append(torch.stack(cols, dim=1))
+            level = wins[0][0][0][l]
+            if isinstance(level, RowShards):  # row shards from a sharded encoder stage: shard by shard
+                out.append(RowShards([pair(l, lambda x, j=j: x.parts[j]) for j in range(level.n)], level.bounds, 2))
+            else:
+                out.append(pair(l))
         return out
 
     def decodePost(featWins, embts, pairs, pairNs, meanPairs, last=None):
@@ -473,7 +629,9 @@ def doSlomo(func, node, opt: IFRNetOpt):
                 res += [pairs[i, 0].float()] * int(embt[1])  # keep-first copies
                 if ks[i]:
                     (pyrL, iL), (pyrR, iR) = featWins[i]
-                    feats = [torch.stack([pyrL[l][iL], pyrR[l][iR]])[None] for l in range(4)]
+                    both = lambda a, b: torch.stack([a[iL], b[iR]])[None]
+                    feats = [zipShards(both, pyrL[l], pyrR[l], axis=2) if isinstance(pyrL[l], RowShards)
+                             else both(pyrL[l], pyrR[l]) for l in range(4)]
                     t = torch.from_numpy(embt[0][None]).to(dev)
                     preds = model.decodePost(feats, t, pairNs[i : i + 1], meanPairs[i : i + 1], opt.ensemble)
                     res += [preds[0, j] for j in range(ks[i])]

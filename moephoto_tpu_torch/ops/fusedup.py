@@ -360,15 +360,16 @@ def fusedUpHeads(params, res: torch.Tensor, im: torch.Tensor, nUps: int,
     lib = _library()
     stream = torch.cuda.current_stream(res.device).cuda_stream
     weights = [t.data_ptr() for t in prepared.tensors]
-    if prepared.instance == "wgmma":
-        err = lib.fusedUpHeadsBF16Wgmma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *weights,
-                                        int(prepared.slope01), out.data_ptr(), stream)
-    elif prepared.instance == "mma":
-        err = lib.fusedUpHeadsBF16Mma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *weights,
-                                      int(prepared.slope01), out.data_ptr(), stream)
-    else:
-        fn = lib.fusedUpHeadsBF16 if res.dtype == torch.bfloat16 else lib.fusedUpHeadsF32
-        err = fn(res.data_ptr(), im.data_ptr(), M, c, nUps, cout, *weights, out.data_ptr(), stream)
+    with torch.cuda.device(res.device):  # the launch goes to the tensors' card, on its stream
+        if prepared.instance == "wgmma":
+            err = lib.fusedUpHeadsBF16Wgmma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *weights,
+                                            int(prepared.slope01), out.data_ptr(), stream)
+        elif prepared.instance == "mma":
+            err = lib.fusedUpHeadsBF16Mma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *weights,
+                                          int(prepared.slope01), out.data_ptr(), stream)
+        else:
+            fn = lib.fusedUpHeadsBF16 if res.dtype == torch.bfloat16 else lib.fusedUpHeadsF32
+            err = fn(res.data_ptr(), im.data_ptr(), M, c, nUps, cout, *weights, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fusedUpHeads launch failed: {lib.fusedUpHeadsErrorString(err).decode()}")
     fusedUpHeads.launches += 1

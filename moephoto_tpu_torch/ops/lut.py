@@ -28,6 +28,10 @@ Semantics (the reference kernel and the JAX package's XLA transform):
 bin = clip(#{v < x} - 1, 0, D - 2), fraction (x - v0) / (v1 - v0 + 1e-10)
 left unclamped, so a value outside [v[0], v[D-1]] extrapolates linearly
 from the edge cell.  ``lut[b, c, bid, gid, rid]`` is red-minor.
+
+K6 (:func:`ailutTransformSpmd`) replaces ``moephoto_tpu/ops/lutkernel.py:271``
+``ailutTransformPallasSpmd``: the transform per row shard, the LUT and
+vertices copied to each shard's device; pointwise, so no halo.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from moephoto_tpu_torch.ops import _build
+from moephoto_tpu_torch.parallel import sharded, temporal
 
 SOURCE = "ailut.cu"
 EPS = 1e-10
@@ -148,8 +153,9 @@ def _onCard(name: str, img: torch.Tensor, lut: torch.Tensor, vertices: torch.Ten
     lut4 = F.pad(lut.permute(0, 2, 3, 4, 1), (0, 1)).contiguous()
     lib = _library()
     fn = getattr(lib, name + ("BF16" if img.dtype == torch.bfloat16 else "F32"))
-    err = fn(img.data_ptr(), lut4.data_ptr(), vertices.data_ptr(), out.data_ptr(), H * W, D, B,
-             torch.cuda.current_stream(img.device).cuda_stream)
+    with torch.cuda.device(img.device):  # the launch goes to the tensors' card, on its stream
+        err = fn(img.data_ptr(), lut4.data_ptr(), vertices.data_ptr(), out.data_ptr(), H * W, D, B,
+                 torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.ailutErrorString(err).decode()}")
     return out
@@ -191,3 +197,35 @@ def ailutTransformClamped(img: torch.Tensor, lut: torch.Tensor, vertices: torch.
 
 
 ailutTransformClamped.launches = 0
+
+
+def ailutTransformSpmd(img, lut: torch.Tensor, vertices: torch.Tensor):
+    """:func:`ailutTransform` row-sharded (K6, the port of
+    ``moephoto_tpu/ops/lutkernel.py:271`` ``ailutTransformPallasSpmd``):
+    ``img`` as RowShards on axis 1 (or a whole tensor, then cut over the
+    video mesh and the result gathered).  The transform is pointwise, so
+    there is no halo: the LUT and vertices are copied once to each shard's
+    device and the kernel (or its plain version on a CPU shard) runs shard
+    by shard, bit-equal to the single-device transform by construction."""
+    whole = not isinstance(img, sharded.RowShards)
+    if whole:
+        mesh = temporal.videoMesh()
+        if mesh is None:
+            return ailutTransform(img, lut, vertices)
+        img = sharded.RowShards.split(img, mesh.flat, 1)
+    if img.axis != 1:
+        raise ValueError(f"ailutTransformSpmd: rows on axis {img.axis}, want 1")
+    tables, outs = {}, []
+    for part in img.parts:
+        dev = part.device
+        if dev not in tables:
+            tables[dev] = (lut.to(dev), vertices.to(dev))
+        out = ailutTransform(part.contiguous(), *tables[dev])
+        if out.is_cuda and out.numel():
+            ailutTransformSpmd.launches += 1
+        outs.append(out)
+    res = sharded.RowShards(outs, img.bounds, 1)
+    return res.gather() if whole else res
+
+
+ailutTransformSpmd.launches = 0

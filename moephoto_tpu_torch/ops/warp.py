@@ -16,15 +16,26 @@ Semantics (JAX ``warpXLAExact`` :212 through ``gridSample`` :16): sample
 ``border`` clamps each tap to the image, ``zeros`` reads zero outside it.
 Coordinates and weights are fp32, the blend is fp32, and the result is
 rounded once to the image's dtype.
+
+K2a (:func:`warpSpmd`, :func:`backWarpSpmd`) replaces the JAX package's
+row-sharded wrappers (``warpBoundedSpmd`` :264, ``backWarpBoundedSpmd``
+:227), which run the Pallas tiers per shard inside ``shard_map`` after a
+halo exchange of the tier's margin: here the port's own kernel runs per row
+shard (``parallel/sharded.py``) with a halo of the flow's global row reach,
+and K2 takes the shard's row offset and the global height, so each row is
+bit-equal to the single-device warp.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from moephoto_tpu_torch.ops import _build
+from moephoto_tpu_torch.parallel import sharded
 
 SOURCE = "warp.cu"
 MAX_C = 256
@@ -43,24 +54,34 @@ def _coords(s: torch.Tensor, n: int):
     return i0, i0 + 1, w
 
 
-def warpPlain(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border") -> torch.Tensor:
+def warpPlain(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border",
+              rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Torch-op version of the kernel: (B, H, W, C), flow (B, H, W, 2) ->
-    (B, H, W, C) in ``img``'s dtype."""
+    (B, H, W, C) in ``img``'s dtype.
+
+    ``rows = (out0, img0, full)`` warps a row window (K2a): the flow and
+    the output are the global rows [out0, out0 + H) of an image of ``full``
+    rows, ``img`` holds its rows [img0, img0 + img.shape[1]); coordinates,
+    the border clamp and the zeros test are the global image's, a tap row
+    is then clamped into ``img``."""
     if padding_mode not in _MODES:
         raise ValueError(f"padding_mode {padding_mode!r} not in {tuple(_MODES)}")
-    B, H, W, C = img.shape
+    B, H, W, C = flow.shape[:3] + img.shape[3:]
+    Hi = img.shape[1]
+    out0, img0, full = rows if rows is not None else (0, 0, Hi)
     dev = img.device
     sx = torch.arange(W, dtype=torch.float32, device=dev) + flow[..., 0].float()
-    sy = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + flow[..., 1].float()
+    sy = torch.arange(out0, out0 + H, dtype=torch.float32, device=dev)[:, None] + flow[..., 1].float()
     x0, x1, wx = _coords(sx, W)
-    y0, y1, wy = _coords(sy, H)
-    table = img.reshape(B, H * W, C)
+    y0, y1, wy = _coords(sy, full)
+    table = img.reshape(B, Hi * W, C)
 
     def tap(yi, xi):
-        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(B, H * W, 1).expand(B, H * W, C)
+        yw = (yi.clamp(0, full - 1) - img0).clamp(0, Hi - 1)
+        idx = (yw * W + xi.clamp(0, W - 1)).reshape(B, H * W, 1).expand(B, H * W, C)
         v = torch.gather(table, 1, idx).float().reshape(B, H, W, C)
         if padding_mode == "zeros":
-            inside = (yi >= 0) & (yi <= H - 1) & (xi >= 0) & (xi <= W - 1)
+            inside = (yi >= 0) & (yi <= full - 1) & (xi >= 0) & (xi <= W - 1)
             v = torch.where(inside[..., None], v, torch.zeros((), device=dev))
         return v
 
@@ -71,20 +92,23 @@ def warpPlain(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border
     return (top * uy + bot * wy).to(img.dtype)
 
 
-def backWarpFlow(flow: torch.Tensor) -> torch.Tensor:
+def backWarpFlow(flow: torch.Tensor, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Fold ``backWarp``'s normalisation quirk into a pixel-offset flow.
 
     ``backWarp`` (reference videoSR.py:43-72) normalises grid + flow by W
     and denormalises by W - 1 (align_corners), so it samples at
     (x + u)(W - 1)/W, not x + u: with u' = u(W - 1)/W - x/W, exact warping
-    by u' is ``backWarp`` by u (JAX ``backWarpBounded``, warp.py:243)."""
+    by u' is ``backWarp`` by u (JAX ``backWarpBounded``, warp.py:243).
+    ``rows = (row0, full)``: ``flow`` is the global rows [row0, row0 + H)
+    of a flow of ``full`` rows, folded on global row coordinates."""
     B, H, W, _ = flow.shape
+    row0, full = rows if rows is not None else (0, H)
     dev = flow.device
     xs = torch.arange(W, dtype=torch.float32, device=dev)
-    ys = torch.arange(H, dtype=torch.float32, device=dev)
+    ys = torch.arange(row0, row0 + H, dtype=torch.float32, device=dev)
     u, v = flow[..., 0].float(), flow[..., 1].float()
     up = u * ((W - 1.0) / W) - xs[None, None, :] * (1.0 / W)
-    vp = v * ((H - 1.0) / H) - ys[None, :, None] * (1.0 / H)
+    vp = v * ((full - 1.0) / full) - ys[None, :, None] * (1.0 / full)
     return torch.stack([up, vp], dim=-1)
 
 
@@ -99,7 +123,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         i64, ptr = ctypes.c_longlong, ctypes.c_void_p
         lib.warpBilinear.argtypes = ([ctypes.c_int, ctypes.c_int, ptr, i64, i64, i64, ptr, i64, i64, i64, ptr]
-                                     + [ctypes.c_int] * 5 + [ptr])
+                                     + [ctypes.c_int] * 9 + [ptr])
         lib.warpBilinear.restype = ctypes.c_int
         lib.warpErrorString.argtypes = [ctypes.c_int]
         lib.warpErrorString.restype = ctypes.c_char_p
@@ -114,24 +138,29 @@ def _unitChannel(t: torch.Tensor) -> torch.Tensor:
     return t if t.shape[-1] == 1 or t.stride(-1) == 1 else t.contiguous()
 
 
-def warp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border") -> torch.Tensor:
+def warp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border",
+         rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Bilinear warp at (x + u, y + v): (B, H, W, C) -> (B, H, W, C).
 
     ``img`` fp32 or bf16 with 1 <= C <= 256, ``flow`` (B, H, W, 2) fp32 or
-    bf16; any batch, row and pixel strides.  CPU tensors take
+    bf16; any batch, row and pixel strides.  ``rows = (out0, img0, full)``
+    warps a row window, as :func:`warpPlain` says.  CPU tensors take
     :func:`warpPlain`; CUDA tensors launch the kernel or raise.
     """
     if img.device.type == "cpu" and flow.device.type == "cpu":
-        return warpPlain(img, flow, padding_mode)
+        return warpPlain(img, flow, padding_mode, rows)
     if not (img.is_cuda and flow.device == img.device):
         raise ValueError(f"warp: img on {img.device}, flow on {flow.device}")
     if img.dtype not in _TYPES or flow.dtype not in _TYPES:
         raise TypeError(f"warp takes fp32 or bf16 tensors, got {img.dtype}/{flow.dtype}")
     if padding_mode not in _MODES:
         raise ValueError(f"padding_mode {padding_mode!r} not in {tuple(_MODES)}")
-    if img.ndim != 4 or flow.shape != img.shape[:3] + (2,):
-        raise ValueError(f"warp: image {tuple(img.shape)}, flow {tuple(flow.shape)}")
-    B, H, W, C = img.shape
+    B, H, W, C = flow.shape[:3] + img.shape[3:]
+    out0, img0, full = rows if rows is not None else (0, 0, H)
+    if (img.ndim != 4 or flow.shape[3] != 2 or img.shape[0] != B or img.shape[2] != W
+            or not (0 <= out0 and out0 + H <= full and 0 <= img0 and img0 + img.shape[1] <= full)
+            or (rows is None and img.shape[1] != H)):
+        raise ValueError(f"warp: image {tuple(img.shape)}, flow {tuple(flow.shape)}, rows {rows}")
     if not 1 <= C <= MAX_C:
         raise ValueError(f"warp: C={C} not in 1..{MAX_C}")
     out = torch.empty((B, H, W, C), dtype=img.dtype, device=img.device)
@@ -139,9 +168,11 @@ def warp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border") ->
         return out
     img, flow = _unitChannel(img), _unitChannel(flow)
     lib = _library()
-    err = lib.warpBilinear(_TYPES[img.dtype], _TYPES[flow.dtype], img.data_ptr(), *img.stride()[:3],
-                           flow.data_ptr(), *flow.stride()[:3], out.data_ptr(), B, H, W, C,
-                           _MODES[padding_mode], torch.cuda.current_stream(img.device).cuda_stream)
+    with torch.cuda.device(img.device):  # the launch goes to the tensors' card, on its stream
+        err = lib.warpBilinear(_TYPES[img.dtype], _TYPES[flow.dtype], img.data_ptr(), *img.stride()[:3],
+                               flow.data_ptr(), *flow.stride()[:3], out.data_ptr(), B, H, W, C,
+                               out0, img0, img.shape[1], full,
+                               _MODES[padding_mode], torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp launch failed: {lib.warpErrorString(err).decode()}")
     warp.launches += 1
@@ -149,3 +180,66 @@ def warp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border") ->
 
 
 warp.launches = 0
+
+
+def rowReach(parts: Sequence[torch.Tensor], channels) -> int:
+    """ceil of the largest finite |value| of ``channels`` (of the last
+    axis) over every part, combined across the parts' devices and read to
+    the host once (counted in ``sharded.stats["hostReads"]``).  A
+    non-finite value does not size it: the kernels send a NaN or infinite
+    coordinate's taps outside the image, and its weight makes the result
+    NaN, whatever row is read."""
+    if any(p.device.type not in ("cpu", "cuda") for p in parts):
+        raise ValueError(f"row shards on {[p.device for p in parts]}: the sharded ops take CPU or CUDA shards")
+    home = parts[0].device
+    maxes = []
+    for p in parts:
+        v = p[..., channels].float().abs()
+        maxes.append(torch.where(torch.isfinite(v), v, torch.zeros((), device=v.device)).amax().to(home))
+    sharded.stats["hostReads"] += 1
+    return int(math.ceil(float(torch.stack(maxes).amax())))
+
+
+def _checkShards(img: sharded.RowShards, flow: sharded.RowShards, what: str) -> None:
+    """Image and flow shards on row axis 1, with the same bounds and devices."""
+    if img.axis != 1 or flow.axis != 1 or img.bounds != flow.bounds:
+        raise ValueError(f"{what}: image rows {img.bounds} on axis {img.axis}, flow {flow.bounds} on {flow.axis}")
+    if img.devices != flow.devices:
+        raise ValueError(f"{what}: image shards on {img.devices}, flow shards on {flow.devices}")
+
+
+def warpSpmd(img: sharded.RowShards, flow: sharded.RowShards, padding_mode: str = "border",
+             reach: Optional[int] = None) -> sharded.RowShards:
+    """:func:`warp` row-sharded (K2a, the port of ``moephoto_tpu/ops/warp.py:264``
+    ``warpBoundedSpmd``): ``img`` and ``flow`` as RowShards on axis 1 with
+    the same bounds.  The halo is the flow's global row reach,
+    ceil(max |v|) + 1, read once; each shard's image window takes rows from
+    as many shards as that spans, and the kernel (or its plain version on a
+    CPU shard) warps the shard's rows at their global coordinates, so each
+    output row is bit-equal to the single-device :func:`warp`'s.  A caller
+    that warps by several flows may pass ``reach``, a :func:`rowReach` of
+    them all, read once for all of them."""
+    _checkShards(img, flow, "warpSpmd")
+    reach = (rowReach(flow.parts, 1) if reach is None else reach) + 1
+    H, outs = img.rows, []
+    for j in range(img.n):
+        a, b = img.rowsOf(j)
+        lo, hi = max(0, a - reach), min(H, b + reach)
+        out = warp(img.window(j, lo, hi), flow.parts[j], padding_mode, (a, lo, H))
+        if out.is_cuda:
+            warpSpmd.launches += 1
+        outs.append(out)
+    return sharded.RowShards(outs, img.bounds, 1)
+
+
+warpSpmd.launches = 0
+
+
+def backWarpSpmd(img: sharded.RowShards, flow: sharded.RowShards, padding_mode: str = "border") -> sharded.RowShards:
+    """``backWarp`` row-sharded (the port of ``backWarpBoundedSpmd``,
+    ``moephoto_tpu/ops/warp.py:227``): the normalisation fold on global row
+    coordinates shard by shard, then :func:`warpSpmd`."""
+    _checkShards(img, flow, "backWarpSpmd")
+    folded = sharded.RowShards([backWarpFlow(p, (a, flow.rows)) for p, a in zip(flow.parts, flow.bounds)],
+                               flow.bounds, 1)
+    return warpSpmd(img, folded, padding_mode)

@@ -1,0 +1,250 @@
+"""Row-sharded execution over a mesh: row shards, halo exchange, and the
+one primitive every row-sharded stage is written in.
+
+The JAX package shards image rows over the mesh's ``sp`` axis and lets
+``shard_map`` with ``ppermute`` (``moephoto_tpu/parallel/sharded.py``) or
+GSPMD move the halos.  PyTorch has no partitioner, so here a sharded
+stage is written out: a tensor is a :class:`RowShards` (one part per mesh
+device, each the rows [a, b) of the global tensor), a halo is a slice of
+the neighbouring parts copied to the shard's device (a peer copy across
+cards, a device-local copy on one), and a convolutional segment runs
+through :func:`rowSegment`: the shard's rows plus ``halo`` rows from each
+side, the segment on the shard's device, ``halo * scale`` rows cropped.
+
+A shard on a global edge takes no halo on that side, so every conv pads
+exactly as the single-device run does (a zero halo would not: bias and
+PReLU turn zero rows into non-zero rows for the next conv).  Row splits
+are multiples of the stage's alignment and may be uneven.  Where a shard
+is shorter than a segment's halo, the segment runs gathered on the first
+shard's device and is split again (the counterpart of JAX replicating
+rows that do not divide); :data:`stats` counts every such gather, every
+host read and the bytes moved between shards.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+# counters of the sharded paths: "gathers" (segments run gathered),
+# "hostReads" (device -> host reads that size a halo), "haloBytes" (bytes
+# copied from one shard's part into another shard's window), "tileCalls"
+# (model calls of the tiled engine, per mesh slot)
+stats: dict = {}
+
+
+def resetStats() -> None:
+    stats.clear()
+    stats.update(gathers=0, hostReads=0, haloBytes=0, tileCalls={})
+
+
+resetStats()
+
+
+def rowBounds(rows: int, n: int, align: int = 1) -> List[int]:
+    """Row starts of at most ``n`` shards of ``rows`` rows, each a multiple
+    of ``align`` rows, as even as that allows (the first shards take one
+    block more); fewer shards when there are fewer blocks than ``n``.
+    Returns the n + 1 bounds."""
+    if rows % align:
+        raise ValueError(f"{rows} rows are no multiple of the alignment {align}")
+    blocks = rows // align
+    m = max(1, min(n, blocks))
+    q, r = divmod(blocks, m)
+    bounds = [0]
+    for j in range(m):
+        bounds.append(bounds[-1] + (q + (j < r)) * align)
+    return bounds
+
+
+class RowShards:
+    """A tensor cut along ``axis`` into row shards: ``parts[j]`` holds the
+    global rows [bounds[j], bounds[j + 1]) on its own device."""
+
+    __slots__ = ("parts", "bounds", "axis")
+
+    def __init__(self, parts: Sequence[torch.Tensor], bounds: Sequence[int], axis: int):
+        self.parts = list(parts)
+        self.bounds = tuple(int(b) for b in bounds)
+        self.axis = axis
+        if len(self.bounds) != len(self.parts) + 1:
+            raise ValueError(f"{len(self.parts)} parts, bounds {self.bounds}")
+        for p, a, b in zip(self.parts, self.bounds, self.bounds[1:]):
+            if p.shape[axis] != b - a:
+                raise ValueError(f"part of {p.shape[axis]} rows for rows [{a}, {b}) on axis {axis}")
+
+    @staticmethod
+    def split(x: torch.Tensor, devices: Sequence[torch.device], axis: int, align: int = 1,
+              bounds: Optional[Sequence[int]] = None) -> "RowShards":
+        """``x`` cut into row shards over ``devices`` (see :func:`rowBounds`,
+        or at ``bounds``); a part on ``x``'s own device is a view."""
+        if bounds is None:
+            bounds = rowBounds(x.shape[axis], len(devices), align)
+        parts = [x.narrow(axis, a, b - a).to(d, non_blocking=True)
+                 for d, a, b in zip(devices, bounds, bounds[1:])]
+        return RowShards(parts, bounds, axis)
+
+    @property
+    def n(self) -> int:
+        return len(self.parts)
+
+    @property
+    def rows(self) -> int:
+        return self.bounds[-1]
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [p.device for p in self.parts]
+
+    @property
+    def shape(self):
+        s = list(self.parts[0].shape)
+        s[self.axis] = self.rows
+        return torch.Size(s)
+
+    def rowsOf(self, j: int):
+        return self.bounds[j], self.bounds[j + 1]
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default: the first part's)."""
+        device = self.parts[0].device if device is None else torch.device(device)
+        return torch.cat([p.to(device, non_blocking=True) for p in self.parts], self.axis)
+
+    def map(self, fn: Callable, axis: Optional[int] = None) -> "RowShards":
+        """``fn`` on every part; the rows stay (they move to ``axis``)."""
+        return RowShards([fn(p) for p in self.parts], self.bounds, self.axis if axis is None else axis)
+
+    def window(self, j: int, lo: int, hi: int) -> torch.Tensor:
+        """Global rows [lo, hi) on part j's device, taken from as many parts
+        as they span; a view when part j holds them all."""
+        dev = self.parts[j].device
+        pieces = []
+        for k, (a, b) in enumerate(zip(self.bounds, self.bounds[1:])):
+            s, e = max(lo, a), min(hi, b)
+            if s >= e:
+                continue
+            piece = self.parts[k].narrow(self.axis, s - a, e - s)
+            if k != j:
+                stats["haloBytes"] += piece.numel() * piece.element_size()
+                piece = piece.to(dev, non_blocking=True)
+            pieces.append(piece)
+        if not pieces or sum(p.shape[self.axis] for p in pieces) != hi - lo:
+            raise ValueError(f"rows [{lo}, {hi}) are not inside [0, {self.rows})")
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, self.axis)
+
+
+def zipShards(fn: Callable, *args, axis: Optional[int] = None) -> "RowShards":
+    """``fn`` shard by shard over ``args``: each :class:`RowShards` gives its
+    part j, anything else goes as it is.  The RowShards must share bounds
+    and devices; the result's rows are on ``axis`` (default the first
+    RowShards')."""
+    shards = [a for a in args if isinstance(a, RowShards)]
+    ref = shards[0]
+    for s in shards[1:]:
+        if s.bounds != ref.bounds or s.devices != ref.devices:
+            raise ValueError(f"row shards differ: {s.bounds} on {s.devices}, {ref.bounds} on {ref.devices}")
+    axis = ref.axis if axis is None else axis
+    outs = [fn(*(a.parts[j] if isinstance(a, RowShards) else a for a in args)) for j in range(ref.n)]
+    return RowShards(outs, ref.bounds, axis)
+
+
+def scaleBounds(bounds: Sequence[int], scale) -> List[int]:
+    """Bounds times ``scale`` (a Fraction), which must give whole rows."""
+    out = [Fraction(b) * Fraction(scale) for b in bounds]
+    if any(o.denominator != 1 for o in out):
+        raise ValueError(f"bounds {list(bounds)} times {scale} are not whole rows")
+    return [int(o) for o in out]
+
+
+def rowSegment(fn: Callable, x: RowShards, halo: int, scale=1, gather: bool = False) -> RowShards:
+    """A convolutional segment, row-sharded: on each shard's device ``fn``
+    takes the shard's rows with ``halo`` rows from each side (none past a
+    global edge) and gives ``scale`` output rows per input row; the
+    ``halo * scale`` rows next to each halo are cropped.  ``halo`` is the
+    segment's row reach: every output row depends on the input rows within
+    ``halo`` of it (in input rows).  Where a shard holds fewer rows than
+    ``halo``, or the caller asks for it (``gather``), the segment runs
+    gathered on the first device and is split again (counted in
+    ``stats["gathers"]``)."""
+    scale = Fraction(scale)
+    outBounds = scaleBounds(x.bounds, scale)
+    if gather or any(b - a < halo for a, b in zip(x.bounds, x.bounds[1:])):
+        stats["gathers"] += 1
+        y = fn(x.gather())
+        return RowShards([y.narrow(x.axis, a, b - a).to(d, non_blocking=True)
+                          for d, a, b in zip(x.devices, outBounds, outBounds[1:])], outBounds, x.axis)
+    halo = int(halo)
+    outs = []
+    for j in range(x.n):
+        a, b = x.rowsOf(j)
+        lo, hi = max(0, a - halo), min(x.rows, b + halo)
+        y = fn(x.window(j, lo, hi))
+        top = Fraction(a - lo) * scale
+        if top.denominator != 1:
+            raise ValueError(f"a halo of {a - lo} rows at scale {scale} is not whole rows")
+        outs.append(y.narrow(x.axis, int(top), outBounds[j + 1] - outBounds[j]))
+    return RowShards(outs, outBounds, x.axis)
+
+
+def haloExchange(x: RowShards, halo: int, mode: str = "reflect") -> List[torch.Tensor]:
+    """Each part with ``halo`` rows from its neighbours on each side (from
+    as many parts as ``halo`` spans), as ``moephoto_tpu/parallel/sharded.py``
+    ``haloExchange`` pads a row shard inside ``shard_map``.  Past a global
+    edge the rows are what a single-device pad of the whole tensor gives
+    there: ``reflect`` (conv stages), ``edge`` (border-mode warps) or
+    ``zero`` (zeros-mode warps, halos that get cropped)."""
+    if mode not in ("reflect", "edge", "zero"):
+        raise ValueError(mode)
+    ax, H, out = x.axis, x.rows, []
+    for j in range(x.n):
+        a, b = x.rowsOf(j)
+        t, u = max(0, halo - a), max(0, b + halo - H)
+        mid = x.window(j, max(0, a - halo), min(H, b + halo))
+        pieces = []
+        if t:
+            pieces.append(_edgeRows(x, j, mode, t, top=True))
+        pieces.append(mid)
+        if u:
+            pieces.append(_edgeRows(x, j, mode, u, top=False))
+        out.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces, ax))
+    return out
+
+
+def _edgeRows(x: RowShards, j: int, mode: str, n: int, top: bool) -> torch.Tensor:
+    H, ax = x.rows, x.axis
+    if mode == "reflect":
+        rows = x.window(j, 1, n + 1) if top else x.window(j, H - 1 - n, H - 1)
+        return rows.flip(ax)
+    edge = x.window(j, 0, 1) if top else x.window(j, H - 1, H)
+    shape = list(edge.shape)
+    shape[ax] = n
+    return edge.expand(shape) if mode == "edge" else torch.zeros(shape, dtype=edge.dtype, device=edge.device)
+
+
+def shardedTiledForward(apply: Callable, mesh, halo: int, scale: int = 1) -> Callable:
+    """A forward over a (dp, sp) mesh (``moephoto_tpu/parallel/sharded.py``
+    ``shardedTiledForward``): (B, H, W, C) -> (B, H * scale, W * scale, C'),
+    the batch split over ``dp`` and the rows over ``sp``; each shard takes a
+    reflect halo of ``halo`` rows, runs ``apply`` on its device and drops
+    ``halo * scale`` rows on each side.  Exact where the model's receptive
+    field fits in the halo.  Returns the whole output on the mesh's first
+    device."""
+    grid = mesh.devices.reshape(mesh.devices.shape[0], -1)
+    dp, sp = grid.shape
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % dp:
+            raise ValueError(f"batch {x.shape[0]} does not split over dp = {dp}")
+        home, per, rowsOut = grid[0, 0], x.shape[0] // dp, []
+        for i in range(dp):
+            rs = RowShards.split(x[i * per : (i + 1) * per], list(grid[i]), 1)
+            ys = []
+            for j, padded in enumerate(haloExchange(rs, halo, "reflect")):
+                y = apply(padded)
+                ys.append(y.narrow(1, halo * scale, padded.shape[1] * scale - 2 * halo * scale).to(home))
+            rowsOut.append(torch.cat(ys, 1))
+        return torch.cat(rowsOut, 0)
+
+    return forward
