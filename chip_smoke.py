@@ -76,7 +76,17 @@ Phases, each printing one JSON line:
               (input Mpx/s, a profiled clip by kernel name) and K3 at
               each of its three shapes on the inputs the CLI run gave
               it, beside its bound and its plain version
-  9. dn       runs the CLI's image path on the denoise -> SR chain (DN
+  9. demob    runs the CLI's video path with ESTRNN 1ms8ms deblur (fake
+              ffmpeg decode -> buffer -> demob in bf16 -> output -> encode) on
+              9 1280x720 frames with seeded random weights (the last conv
+              scaled, DEMOB_OUT_GAIN), checks 9 encoded frames and no kernel
+              launch; then BASELINE config 5, demob -> IFRNet-M slomo x2
+              (bench.py runs IFRNet S), 17 encoded frames and 64 warp
+              launches; holds the deblur stream on 6 frames of 128x128 in
+              fp32 on the card against the CPU; times ESTRNN at 1280x720 on
+              device-resident frames (output Mpx/s and device ms a frame by
+              CUDA events, a profiled chunk: idle share, top kernels)
+ 10. dn       runs the CLI's image path on the denoise -> SR chain (DN
               lite5 -> SR lite x4, bf16) on a seeded 1920x1080 PNG, checks
               the 7680x4320 output and the 4 K1 launches; then on the image
               steps of the reference's benchmark preset (SR lite x2 ->
@@ -88,12 +98,14 @@ Phases, each printing one JSON line:
               device-resident 1080p image (Mpx/s by CUDA events, device
               ms, idle share and top kernels from one profiled call), and
               K5 alone at 1080p and at the gate's 32x64, timed as above
- 10. mesh     the multi-device serving layer on the one card, row shards of
+ 11. mesh     the multi-device serving layer on the one card, row shards of
               cuda:0 x 2 and x 4 (installed meshes): K2a (warpSpmd,
               backWarpSpmd), K3's tier (deformConv2dSpmd) and K6
               (ailutTransformSpmd) held bit-equal to the single-device
               kernels on the inputs the video, vsr and retouch phases
-              recorded, flows that span shards included; cli image lite x4
+              recorded (backWarpSpmd on IconVSR's SpyNet levels and
+              propWarp, also with its scan's reach passed as ``reach``),
+              flows that span shards included; cli image lite x4
               on the main phase's PNG under [2] (within 1 LSB of its output,
               K1 launched by each mesh slot); cli video IFRNet-M slomo x2 on
               the video phase's 9 frames under [2] and [4] (17 frames, each
@@ -102,11 +114,22 @@ Phases, each printing one JSON line:
               3840x2160 under [2] and [4] against a single-device run
               there (9 frames, the same bound), where IFRNet's 1/8 level
               runs sharded; the 128x128 slomo crop in
-              fp32 against the single-device card run; EDVR's DCN module and
-              AiLUT under spmdTracing(); then slomo and lite x4 Mpx/s
-              sharded against single-device, the halo exchange's ms per
-              stage, and each sharded kernel's per-shard median launch
-              beside its bound
+              fp32 against the single-device card run; cli video IconVSR x4
+              on the vsr phase's 22 frames of 640x360 and ESTRNN on the demob
+              phase's 9 frames of 1280x720 under [2] and [4] (every stage
+              row-sharded: EDVR's four DCNs through K3's tier, SpyNet's and
+              the recurrences' warps through K2a; each frame within 1 LSB of
+              the single-device run, launches, gathered segments and host
+              reads counted, every segment run sharded also run whole and
+              bit-equal to it), their fp32 128x128 crops on [2] against the
+              single-device card run; AiLUT under spmdTracing() (K6); then
+              slomo and lite x4 Mpx/s sharded against single-device, the
+              halo exchange's ms per stage, each sharded kernel's per-shard
+              median launch beside its bound (K2a, at IFRNet's and
+              IconVSR's shapes, beside F.grid_sample on each shard's halo
+              window), and VSR and demob Mpx/s sharded
+              against single-device
+Each phase's seconds go into a ``phase_seconds`` line.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; with no CUDA device it
@@ -183,6 +206,18 @@ DCN_LEVELS = ("l3", "l2", "l1", "cas")  # call order within one EDVR call
 # trunks and recurrences whose warps and DCNs turn a coordinate difference
 # into a value difference times the local gradient
 VSR_TOL = 2e-3
+DEMOB = [{"op": "demob", "model": "1ms8ms"}]
+CONFIG5 = DEMOB + SLOMO  # BASELINE config 5: ESTRNN deblur, then IFRNet slomo x2 (bench.py:750-870)
+DEMOB_W, DEMOB_H, DEMOB_FRAMES = 1280, 720, 9
+# the seeded random ESTRNN's last conv scaled by this and its bias raised by 0.5, so its
+# outputs spread over about [0.14, 0.82] instead of 0.50 +- 0.01 (the 16-bit comparisons
+# then see every value; the draws stay synth.synthESTRNNParams')
+DEMOB_OUT_GAIN = 30.0
+# ESTRNN stream on the card vs the CPU, fp32, relative to max(1, |cpu|): cuDNN's conv
+# algorithms differ from the CPU's by ~1e-5 a layer over the ~60 convs of a recurrence
+# step and the recurrence; no looser than VSR_TOL
+DEMOB_TOL = 1e-3
+DEMOB_WARM, DEMOB_TIMED = 16, 48  # frames of the 720p timing (bench.py:556 times 72 after 24)
 DN_CHAIN = [{"op": "DN", "model": "lite5"}, {"op": "SR", "model": "lite", "scale": 4}]
 PRESET_W, PRESET_H = 1280, 720
 PRESET = [{"scale": 2, "model": "lite", "ensemble": 0, "op": "SR"},
@@ -1253,14 +1288,49 @@ class PathDcn:
         return False
 
 
+class PathVsrWarps:
+    """While installed (it wraps ``iconvsr.backWarp``, which SpyNet's levels
+    and the recurrences' ``propWarp`` call, and ``iconvsr.toFloat``, which
+    takes each scan's flows): the first (image, flow, mode) of each warp
+    shape and mode, and for a zeros-mode warp (``propWarp``) the row reach
+    of its scan's flows, which the row-sharded scan reads once and passes
+    to ``backWarpSpmd``."""
+
+    def __enter__(self):
+        from moephoto_tpu_torch.models import iconvsr
+        from moephoto_tpu_torch.ops.warp import rowReach
+
+        self.module, self.orig, self.inputs, scan = iconvsr, (iconvsr.backWarp, iconvsr.toFloat), {}, [None]
+
+        def flows(x):
+            out = self.orig[1](x)
+            scan[0] = rowReach([out], 1)
+            return out
+
+        def record(img, flow, mode):
+            key = f"{shapeKey(img)}_{mode}"
+            if key not in self.inputs:
+                self.inputs[key] = (img.clone(), flow.clone(), mode, scan[0] if mode == "zeros" else None)
+            return self.orig[0](img, flow, mode)
+
+        iconvsr.backWarp, iconvsr.toFloat = record, flows
+        return self
+
+    def __exit__(self, *exc):
+        self.module.backWarp, self.module.toFloat = self.orig
+        return False
+
+
 def runVsr(work):
     """The CLI's video path with IconVSR x4, as a user calls it, on the
-    card in bf16: 22 decoded 640x360 frames -> 22 encoded at 2560x1440."""
+    card in bf16: 22 decoded 640x360 frames -> 22 encoded at 2560x1440.
+    Returns the DCN launches, the DCN and warp inputs the path gave (to
+    hold and time the kernels on), the frames and EDVR's calls."""
     from moephoto_tpu_torch import cli
 
     os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = f"{VSR_W}x{VSR_H}", str(VSR_FRAMES)
     dst = os.path.join(work, "vsr.mkv")
-    with PathDcn() as dcn:
+    with PathDcn() as dcn, PathVsrWarps() as warps, FrameCapture() as cap:
         resetCounts()
         t0 = time.perf_counter()
         path, frames = cli.runVideo(os.path.join(work, "in.mkv"), dst, VSR)
@@ -1282,7 +1352,8 @@ def runVsr(work):
          edvr_calls=edvrCalls, max_abs_offset_by_dcn_level=dcn.maxOffset,
          share_abs_offset_over_3px={lv: sum(v) / len(v) for lv, v in dcn.over3.items()},
          share_abs_offset_under_1px={lv: sum(v) / len(v) for lv, v in dcn.under1.items()})
-    return launches["deformConv2d"], dcn.inputs
+    return (launches["deformConv2d"], dcn.inputs, [np.frombuffer(b, np.uint16) for b in cap.frames], edvrCalls,
+            warps.inputs)
 
 
 def vsrStream(opt, collect):
@@ -1386,6 +1457,165 @@ def timingVsr(seed, gpu, pathInputs):
     emit(phase="kernel_timing", gpu=gpu, kernel="deformConv2d", by_level=shapes,
          library="none: no single PyTorch call computes DCNv2 (torchvision is absent)")
     return dict(shapes["l1"])
+
+
+# --- ESTRNN deblur (demob) and BASELINE config 5 --------------------------------
+
+
+def smokeESTRNNParams(seed):
+    """synthESTRNNParams(seed) with the reconstructor's last conv scaled by
+    DEMOB_OUT_GAIN and its bias raised by 0.5."""
+    from moephoto_tpu_torch.synth import synthESTRNNParams
+
+    sd = synthESTRNNParams(seed)
+    sd["recons"]["2.weight"] *= DEMOB_OUT_GAIN
+    sd["recons"]["2.bias"] += 0.5
+    return sd
+
+
+def runDemob(work):
+    """The CLI's video path with ``demob`` (ESTRNN 1ms8ms in bf16), as a user
+    calls it: 9 decoded 1280x720 frames -> 9 encoded; then BASELINE config 5,
+    demob -> IFRNet-M slomo x2: 9 -> 17 encoded, 8 K2 launches an
+    interpolated frame.  Returns the demob run's raw output frames."""
+    from moephoto_tpu_torch import cli
+
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = f"{DEMOB_W}x{DEMOB_H}", str(DEMOB_FRAMES)
+    out = {}
+    for name, steps, count in (("demob", DEMOB, DEMOB_FRAMES), ("config5", CONFIG5, 2 * DEMOB_FRAMES - 1)):
+        with FrameCapture() as cap:
+            resetCounts()
+            t0 = time.perf_counter()
+            path, frames = cli.runVideo(os.path.join(work, "in.mkv"), os.path.join(work, f"{name}.mkv"), steps)
+            seconds = time.perf_counter() - t0
+            launches = readCounts()
+        with open(path) as fp:
+            meta = json.load(fp)
+        want = count * DEMOB_W * DEMOB_H * 6
+        if frames != DEMOB_FRAMES or meta != {"bytes": want, "s": f"{DEMOB_W}x{DEMOB_H}"} or len(cap.frames) != count:
+            raise AssertionError(f"{name}: read {frames} frames, encoder got {meta} in {len(cap.frames)} frames, "
+                                 f"want {want} bytes of {DEMOB_W}x{DEMOB_H}")
+        warps = 8 * (DEMOB_FRAMES - 1) if name == "config5" else 0
+        if launches["warp"] != warps or sum(launches.values()) != warps:
+            raise AssertionError(f"{name} launched {launches}, want {warps} warps and nothing else")
+        vals = np.stack([np.frombuffer(b, np.uint16) for b in cap.frames])
+        emit(phase=name, steps=steps, input=[DEMOB_FRAMES, DEMOB_H, DEMOB_W, 3], frames_read=frames,
+             encoded_frames=meta["bytes"] // (DEMOB_W * DEMOB_H * 6), geometry=meta["s"], seconds=seconds,
+             launches=launches, output_mean=float(vals.mean() / 65535), output_std=float(vals.std() / 65535),
+             share_clipped=float(((vals == 0) | (vals == 65535)).mean()),
+             slomo_model="IFRNet-M (bench.py:862 runs IFRNet S)" if name == "config5" else None)
+        out[name] = [np.frombuffer(b, np.uint16) for b in cap.frames]
+    return out["demob"]
+
+
+def estrnnStream(opt, collect):
+    from moephoto_tpu_torch.models.estrnn import doESTRNN
+    from moephoto_tpu_torch.progress import Node
+
+    return doESTRNN(lambda x: None if x is None else [collect(x)], Node({"op": "smoke"}), opt)
+
+
+def feedDeblur(opt, frames, collect, pad=2):
+    """A whole clip through a fresh ESTRNN stream with the reflection padding
+    the video engine sets (2 frames at each end): one output a frame."""
+    from moephoto_tpu_torch.models.estrnn import ESTRNNOpt
+
+    o = ESTRNNOpt()
+    o.model, o.dtype, o.start = opt.model, opt.dtype, pad
+    f = estrnnStream(o, collect)
+    out = []
+    for fr in frames:
+        out += f(fr)
+    o.end = -pad
+    return out + f(None)
+
+
+def checkDemobCrop(seed):
+    """The ESTRNN stream on 6 frames of 128x128 in fp32, on the card against
+    the CPU, same weights: within DEMOB_TOL relative to max(1, |cpu|)."""
+    from moephoto_tpu_torch.models.estrnn import getOpt
+
+    frames = np.random.RandomState(seed + 7).rand(6, 128, 128, 3).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        opt = getOpt(dict(DEMOB[0]), torch.device(dev), torch.float32)
+        outs[dev] = torch.stack(feedDeblur(opt, [torch.from_numpy(f).to(dev) for f in frames], lambda x: x.cpu()))
+    err = (outs["cuda"] - outs["cpu"]).abs()
+    tol = DEMOB_TOL * outs["cpu"].abs().clamp_min(1.0)
+    if not (outs["cuda"].shape == (6, 128, 128, 3) and bool((err <= tol).all()) and torch.isfinite(outs["cuda"]).all()):
+        raise AssertionError(f"demob crop: shape {tuple(outs['cuda'].shape)}, card vs CPU {float(err.max())}")
+    emit(phase="demob_crop", shape=list(outs["cuda"].shape), max_abs_err=float(err.max()),
+         tol=f"{DEMOB_TOL}*max(1,|cpu|)", output_range=[float(outs["cpu"].min()), float(outs["cpu"].max())])
+
+
+def deblurFeeder(opt, frames):
+    """A fresh ESTRNN stream with no padding on device-resident frames: feed(k)
+    pushes k frames and returns the number of outputs."""
+    f = estrnnStream(opt, lambda x: x.mean())
+    return lambda k: sum(len(f(frames[i % len(frames)])) for i in range(k))
+
+
+def layerMacs(model, fn):
+    """Multiply-accumulates of every Conv2d, ConvTranspose2d and Linear of
+    ``model`` that ``fn()`` runs, counted by forward hooks from the shapes
+    (a ConvTranspose2d: each input value times its cout k k taps), by the
+    first two parts of the layer's name."""
+    nn, total = torch.nn, {}
+
+    def hook(name):
+        def count(m, inp, out):
+            if isinstance(m, nn.ConvTranspose2d):
+                n = inp[0].numel() * m.weight[0].numel()
+            elif isinstance(m, nn.Conv2d):
+                n = out.numel() * m.weight[0].numel()
+            else:
+                n = out.numel() * m.in_features
+            total[name] = total.get(name, 0) + n
+        return count
+
+    handles = [m.register_forward_hook(hook(".".join(k.split(".")[:2]))) for k, m in model.named_modules()
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total
+
+
+def timingDemob(seed, gpu):
+    """Output Mpx/s of ESTRNN at 1280x720 in bf16 on device-resident frames
+    (the configuration of bench.py:556 ``_benchESTRNN``; DEMOB_TIMED frames
+    after DEMOB_WARM), device ms a frame by CUDA events, its multiply-
+    accumulates a frame (layerMacs), and one profiled chunk of 8 frames:
+    device ms, the achieved rate, idle share, top kernels."""
+    from moephoto_tpu_torch.models.estrnn import getOpt
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = [torch.rand((DEMOB_H, DEMOB_W, 3), generator=g, device="cuda") for _ in range(8)]
+    opt = getOpt(dict(DEMOB[0]))
+    feed = deblurFeeder(opt, frames)
+    feed(DEMOB_WARM)
+    byModule = layerMacs(opt.model, lambda: feed(8))  # a chunk: 8 frames through the cell, 8 windows fused
+    macs = sum(byModule.values()) / 8
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    outFrames = feed(DEMOB_TIMED)
+    end.record()
+    torch.cuda.synchronize()
+    wallS, eventS = time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+    wallMs, rows = profileOnce(lambda: feed(8))
+    deviceMs = sum(t for _, t in rows)
+    emit(phase="demob_timing", gpu=gpu, size=[DEMOB_H, DEMOB_W], warm_frames=DEMOB_WARM, timed_frames=DEMOB_TIMED,
+         output_frames=outFrames, seconds_events=eventS, seconds_wall=wallS,
+         output_mpx_per_s=outFrames * DEMOB_H * DEMOB_W / 1e6 / eventS, ms_per_frame_events=eventS * 1e3 / outFrames,
+         profiled_frames=8, profiled_wall_ms=wallMs, profiled_device_ms=deviceMs, device_ms_per_frame=deviceMs / 8,
+         gmac_per_frame=macs / 1e9, tflops_achieved=2 * macs / (deviceMs / 8 * 1e-3) / 1e12,
+         mac_share_by_module={k: v / (8 * macs) for k, v in sorted(byModule.items(), key=lambda kv: -kv[1])},
+         device_idle_share=(1 - deviceMs / wallMs) if wallMs else None,
+         top_kernels=[{"name": k[:80], "ms": t} for k, t in rows[:16]])
 
 
 def checkLutClamped(seed):
@@ -1567,9 +1797,11 @@ MESH_VIDEO_LSB = 1
 # the 128x128 slomo crop in fp32 (TF32 off) on a mesh vs the single-device card run: the same
 # kernels on the same rows; the mean sums per shard and cuDNN picks algorithms per shape
 MESH_CROP_TOL = 2e-5
+MESH_CROP_RTOL = 1e-5  # with MESH_CROP_TOL, the JAX package's sharded-stage tolerance (tests/test_parallel.py)
 # a second resolution for slomo on a mesh: IFRNet gathers its segments at 1/8 of the rows and
 # coarser (GATHER_FROM_LEVEL), at 2160p 270 rows and fewer
 UHD, UHD_FRAMES = (3840, 2160), 5
+FAR_ROWS = 150.0  # the largest |flow| of mesh_kernels' stretched propWarp case: over a [2] or [4] shard's rows
 
 
 def cardMesh(n):
@@ -1665,16 +1897,20 @@ def holdEqual(errs, key, got, want):
         raise AssertionError(f"{key}: {errs[key]} from the single-device kernel, want bit-equal")
 
 
-def checkMeshKernels(seed, warpInputs, dcnInputs, lutInput, lutModel):
+def checkMeshKernels(seed, warpInputs, vsrWarps, dcnInputs, lutInput, lutModel):
     """K2a, K3's tier and K6 on cuda:0 x 2 and x 4 against the single-device
     kernels, bit-equal: the warp at IFRNet-M's four 1080p shapes on the
     inputs the video phase recorded, fp32 and bf16, both modes, and on
-    flows that span several shards; backWarp; the DCN at EDVR's three
+    flows that span several shards; backWarp at IFRNet's 1/2 level and on
+    what IconVSR's warps were given in the vsr phase (SpyNet's six levels,
+    bf16, border; ``propWarp``, 64 channels fp32, zeros, also with its
+    scan's row reach passed as ``reach``, as the sharded scans do, and by
+    its flow stretched to FAR_ROWS rows with that reach); the DCN at EDVR's three
     640x360 shapes on the offsets the vsr phase recorded, bf16 and fp32
     (TF32 off); the AiLUT transform at 1080p on the retouch chain's input."""
     from moephoto_tpu_torch.ops.deform import deformConv2d, deformConv2dSpmd
     from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformSpmd
-    from moephoto_tpu_torch.ops.warp import backWarp, backWarpSpmd, warp, warpSpmd
+    from moephoto_tpu_torch.ops.warp import backWarp, backWarpSpmd, rowReach, warp, warpSpmd
 
     with torch.inference_mode():
         _, table, vertices = lutModel.generate(lutInput)
@@ -1693,6 +1929,18 @@ def checkMeshKernels(seed, warpInputs, dcnInputs, lutInput, lutModel):
         img, flow = warpInputs["544x960x32_bfloat16"]
         holdEqual(errs, f"backWarpSpmd_{n}_544x960x32", backWarpSpmd(cardShards(img, n), cardShards(flow, n)).gather(),
                   backWarp(img, flow))
+        for key, (img, flow, mode, scanReach) in vsrWarps.items():
+            si, sf, want = cardShards(img, n), cardShards(flow, n), backWarp(img, flow, mode)
+            holdEqual(errs, f"backWarpSpmd_{n}_vsr_{key}", backWarpSpmd(si, sf, mode).gather(), want)
+            if scanReach is not None:
+                holdEqual(errs, f"backWarpSpmd_{n}_vsr_{key}_scan_reach",
+                          backWarpSpmd(si, sf, mode, scanReach).gather(), want)
+                # the random model's flows move less than a row: the same warp by its flow stretched to
+                # FAR_ROWS rows, across shards, with that reach passed as a scan passes its own
+                far = flow * (FAR_ROWS / flow.float().abs().nan_to_num(0.0).amax().clamp_min(1e-6))
+                holdEqual(errs, f"backWarpSpmd_{n}_vsr_{key}_far_reach",
+                          backWarpSpmd(si, cardShards(far, n), mode, rowReach([far], 1)).gather(),
+                          backWarp(img, far, mode))
         for lv in ("l3", "l2", "l1"):
             x, off, mask, weight, bias, dg = dcnInputs[lv]
             for xd in (x, x.float()):
@@ -1704,13 +1952,17 @@ def checkMeshKernels(seed, warpInputs, dcnInputs, lutInput, lutModel):
                   ailutTransform(lutInput.contiguous(), table, vertices))
         counts = readMeshCounts()
         cases = len(warpInputs) + len(spans)
-        want = {"warpSpmd": n * (cases * 4 + 1), "deformConv2dSpmd": n * 6, "ailutTransformSpmd": n}
+        vsrCases = len(vsrWarps) + 2 * sum(r is not None for *_, r in vsrWarps.values())
+        want = {"warpSpmd": n * (cases * 4 + 1 + vsrCases), "deformConv2dSpmd": n * 6, "ailutTransformSpmd": n}
         if any(counts[k] != v for k, v in want.items()):
             raise AssertionError(f"mesh kernels on {n} shards launched {counts}, want {want}")
     torch.cuda.synchronize()
     emit(phase="mesh_kernels", shards=list(MESH_SIZES), tol="bit-equal (0.0)", cases=len(errs),
          max_abs_err=max(errs.values()), warp_reach_rows=reach, dcn_shapes={lv: list(dcnInputs[lv][0].shape)
                                                                             for lv in ("l3", "l2", "l1")},
+         vsr_warps={k: dict(img=list(img.shape), flow=list(flow.shape), mode=mode, scan_reach_rows=r,
+                            flow_reach_rows=int(flow.float().abs().nan_to_num(0.0).max().ceil()))
+                    for k, (img, flow, mode, r) in vsrWarps.items()},
          ailut_input=list(lutInput.shape))
     return max(errs.values())
 
@@ -1818,6 +2070,130 @@ def checkMeshVideoCrop(seed):
          gathered_segments_by_shards=gathers)
 
 
+def runMeshModel(work, n, single, name, steps, size, count, wantOut):
+    """``cli video`` with ``steps`` (IconVSR x4 or ESTRNN) on ``count`` frames
+    of ``size`` (w, h) under the [n] mesh: the frames each within
+    MESH_VIDEO_LSB of the single-device run ``single``; K3's tier and K2a
+    launches, the gathered segments and the host reads counted.  Every
+    segment the shipped rules run sharded is run whole as well
+    (``sharded.checkingSegments``; its seconds include that) and must not
+    round a bit apart from it: the bf16 rounding the gather rules guard
+    against."""
+    from moephoto_tpu_torch import cli
+    from moephoto_tpu_torch.parallel import sharded
+
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = "%dx%d" % size, str(count)
+    with Meshed(cardMesh(n)), FrameCapture() as cap, sharded.checkingSegments():
+        resetCounts()
+        resetMeshCounts()
+        t0 = time.perf_counter()
+        _, frames = cli.runVideo(os.path.join(work, "in.mkv"), os.path.join(work, f"{name}{n}.mkv"), steps)
+        seconds = time.perf_counter() - t0
+        launches, mesh, segments = readCounts(), readMeshCounts(), dict(sharded.stats["segments"])
+    got = [np.frombuffer(b, np.uint16).astype(np.int32) for b in cap.frames]
+    if frames != count or len(got) != len(single) or len(single) != wantOut:
+        raise AssertionError(f"mesh {name} on {n}: {frames} frames in, {len(got)} out, want {wantOut}")
+    lsb = [int(np.abs(a - b.astype(np.int32)).max()) for a, b in zip(got, single)]
+    differing = {k: v for k, v in segments.items() if v[1]}
+    if max(lsb) > MESH_VIDEO_LSB or differing or not segments:
+        raise AssertionError(f"mesh {name} on {n}: {lsb} LSB by frame, launches {launches}, mesh {mesh}, "
+                             f"{len(segments)} sharded segments checked, rounding apart from the whole: {differing}")
+    emit(phase=f"mesh_{name}", shards=n, steps=steps, size=list(size), frames_out=len(got), seconds=seconds,
+         launches=launches, mesh=mesh, max_lsb_by_frame=lsb, tol_lsb=MESH_VIDEO_LSB,
+         share_differing=float(np.mean([(a != b).mean() for a, b in zip(got, single)])),
+         sharded_segments_checked={k: v[0] for k, v in segments.items()}, sharded_segments_differing=differing)
+    return launches, mesh
+
+
+def runMeshVsr(work, n, single, edvrCalls):
+    """IconVSR x4 on the vsr phase's 22 frames of 640x360 under [n]: every EDVR
+    call's four DCNs through K3's tier (n launches each), SpyNet's and the
+    recurrences' warps through K2a."""
+    launches, mesh = runMeshModel(work, n, single, "vsr", VSR, (VSR_W, VSR_H), VSR_FRAMES, VSR_FRAMES)
+    if mesh["deformConv2dSpmd"] != 4 * edvrCalls * n or mesh["warpSpmd"] == 0:
+        raise AssertionError(f"mesh vsr on {n}: launches {launches}, mesh {mesh}, want {4 * edvrCalls * n} "
+                             "DCN launches through K3's tier and K2a launches")
+    return mesh["deformConv2dSpmd"], mesh["warpSpmd"]
+
+
+def runMeshDemob(work, n, single):
+    """ESTRNN on the demob phase's 9 frames of 1280x720 under [n]."""
+    launches, mesh = runMeshModel(work, n, single, "demob", DEMOB, (DEMOB_W, DEMOB_H), DEMOB_FRAMES, DEMOB_FRAMES)
+    if sum(launches.values()):
+        raise AssertionError(f"mesh demob on {n} launched {launches}: ESTRNN has no kernel of its own")
+
+
+def closeTo(got, want, atol, rtol):
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def checkMeshModelCrops(seed):
+    """IconVSR's VSR stream on 9 frames of 128x128 and ESTRNN's deblur stream on
+    6 frames of 128x128, fp32 (TF32 off), on the card under [2] against the
+    single-device card run: within MESH_CROP_TOL abs / MESH_CROP_RTOL rel."""
+    from moephoto_tpu_torch.models import estrnn, iconvsr
+    from moephoto_tpu_torch.parallel import sharded
+
+    rng = np.random.RandomState(seed + 8)
+    clips = {"vsr": [torch.from_numpy(f).cuda() for f in rng.rand(9, 128, 128, 3).astype(np.float32)],
+             "demob": [torch.from_numpy(f).cuda() for f in rng.rand(6, 128, 128, 3).astype(np.float32)]}
+    opts = {"vsr": iconvsr.getOpt({}, torch.device("cuda"), torch.float32),
+            "demob": estrnn.getOpt(dict(DEMOB[0]), torch.device("cuda"), torch.float32)}
+    run = {"vsr": lambda o, c: feedClip(o, c, lambda x: x.cpu()),
+           "demob": lambda o, c: feedDeblur(o, c, lambda x: x.cpu())}
+    report = {}
+    for name in ("vsr", "demob"):
+        single = torch.stack(run[name](opts[name], clips[name]))
+        with Meshed(cardMesh(2)):
+            sharded.resetStats()
+            multi = torch.stack(run[name](opts[name], clips[name]))
+            gathers = sharded.stats["gathers"]
+        err = float((multi - single).abs().max())
+        if multi.shape != single.shape or not closeTo(multi, single, MESH_CROP_TOL, MESH_CROP_RTOL):
+            raise AssertionError(f"mesh {name} crop: {tuple(multi.shape)}, {err} from single-device")
+        report[name] = dict(shape=list(multi.shape), max_abs_err=err, gathered_segments=gathers)
+    emit(phase="mesh_model_crops", shards=2, tol=f"{MESH_CROP_TOL} abs, {MESH_CROP_RTOL} rel", **report)
+
+
+def timingMeshModels(seed, gpu):
+    """IconVSR's input Mpx/s on a device-resident 22-frame 640x360 clip and
+    ESTRNN's output Mpx/s on device-resident 720p frames (DEMOB_WARM then 24
+    timed), by CUDA events, sharded against single-device in turns (single,
+    2, 4, single); with each run's K3-tier and K2a launches, gathered
+    segments and host reads."""
+    from moephoto_tpu_torch.models import estrnn, iconvsr
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    clip = [torch.rand((VSR_H, VSR_W, 3), generator=g, device="cuda") for _ in range(VSR_FRAMES)]
+    frames = [torch.rand((DEMOB_H, DEMOB_W, 3), generator=g, device="cuda") for _ in range(8)]
+    vsrOpt, demobOpt = iconvsr.getOpt({}), estrnn.getOpt(dict(DEMOB[0]))
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        resetMeshCounts()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / 1e3, readMeshCounts()
+
+    rows = {"vsr": [], "demob": []}
+    for n in (None,) + MESH_SIZES + (None,):
+        with Meshed(cardMesh(n) if n else None):
+            feedClip(vsrOpt, clip, lambda x: x.mean())  # warm-up: cuDNN's first calls at the shards' shapes
+            out, sec, counts = timed(lambda: len(feedClip(vsrOpt, clip, lambda x: x.mean())))
+            rows["vsr"].append(dict(shards=n or 1, frames=out, seconds_events=sec, mesh=counts,
+                                    input_mpx_per_s=VSR_FRAMES * VSR_H * VSR_W / 1e6 / sec))
+            feed = deblurFeeder(demobOpt, frames)
+            feed(DEMOB_WARM)
+            out, sec, counts = timed(lambda: feed(24))
+            rows["demob"].append(dict(shards=n or 1, frames=out, seconds_events=sec, mesh=counts,
+                                      output_mpx_per_s=out * DEMOB_H * DEMOB_W / 1e6 / sec))
+    emit(phase="mesh_model_timing", gpu=gpu, vsr_640x360=rows["vsr"], demob_1280x720=rows["demob"],
+         note="one card: the cost of sharding (halo copies, per-shard launches, host reads), not scaling")
+
+
 class HaloTimer:
     """While installed: CUDA events around every row window a shard takes
     (``RowShards.window``: the halo exchange), by IFRNet stage."""
@@ -1884,12 +2260,30 @@ def shardDcnBound(xWin, off, mask, cout):
     return max(tOps, tBytes), ("operations" if tOps > tBytes else "bytes")
 
 
+def shardGridSampleMs(imgWin, flow, top, mode="border"):
+    """Device ms of ``F.grid_sample`` (bilinear, ``mode`` padding,
+    align_corners) on one shard's halo window ``imgWin`` at the shard's
+    flow, its rows ``top`` rows into the window: the library call that
+    computes the shard's warp."""
+    import torch.nn.functional as F
+
+    B, h, w = flow.shape[:3]
+    hw = imgWin.shape[1]
+    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device) + top, torch.arange(w, device=flow.device),
+                            indexing="ij")
+    grid = torch.stack([2 * (xs + flow[..., 0].float()) / (w - 1) - 1,
+                        2 * (ys + flow[..., 1].float()) / (hw - 1) - 1], -1).to(imgWin.dtype)
+    nchw = imgWin.permute(0, 3, 1, 2)
+    return cudaTimeMs(lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode=mode, align_corners=True),
+                      ITERS)
+
+
 def shardWindows(shards, reach):
     return [shards.window(j, max(0, a - reach), min(shards.rows, b + reach))
             for j, (a, b) in enumerate(zip(shards.bounds, shards.bounds[1:]))]
 
 
-def timingMesh(seed, gpu, warpInputs, dcnInputs, lutInput, lutModel):
+def timingMesh(seed, gpu, warpInputs, vsrWarps, dcnInputs, lutInput, lutModel):
     """Sharded against single-device on the one card, in turns (single, 2,
     4, single): slomo output Mpx/s on device-resident 1080p frames with the
     halo exchange's ms per stage (the device clock from before the first
@@ -1898,11 +2292,14 @@ def timingMesh(seed, gpu, warpInputs, dcnInputs, lutInput, lutModel):
     device ms and idle share, and lite x4 input Mpx/s through
     ModelExec; then each sharded kernel's per-shard median launch at its
     shapes beside the mean per-shard bound (the single-device kernel's bytes
-    plus the halo's, over the shards) and the plain version on one shard."""
+    plus the halo's, over the shards) and the plain version on one shard:
+    the warp at IFRNet-M's four 1080p shapes and at IconVSR's warps that run
+    sharded (SpyNet's two finest levels, ``propWarp``; their flows folded as
+    ``backWarpSpmd`` folds them)."""
     from moephoto_tpu_torch.models.ifrnet import getOpt
     from moephoto_tpu_torch.ops.deform import dcnRowReach, deformConv2dPlain, deformConv2dSpmd
     from moephoto_tpu_torch.ops.lut import ailutTransformPlain, ailutTransformSpmd
-    from moephoto_tpu_torch.ops.warp import rowReach, warpPlain, warpSpmd
+    from moephoto_tpu_torch.ops.warp import backWarpFlow, rowReach, warpPlain, warpSpmd
     from moephoto_tpu_torch.pipeline import registry
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1948,18 +2345,24 @@ def timingMesh(seed, gpu, warpInputs, dcnInputs, lutInput, lutModel):
          note="one card: the cost of sharding (halo copies, per-shard launches, host reads), not scaling")
 
     kernels = {}
+    warpCases = {key: (img, flow, "border") for key, (img, flow) in warpInputs.items()}
+    fullRows = max(img.shape[1] for img, *_ in vsrWarps.values())
+    warpCases.update({f"vsr_{key}": (img, backWarpFlow(flow), mode) for key, (img, flow, mode, _) in vsrWarps.items()
+                      if 4 * img.shape[1] > fullRows})  # IconVSR gathers the levels at 1/4 of the rows and coarser
     for n in MESH_SIZES:
-        for key, (img, flow) in warpInputs.items():
+        for key, (img, flow, mode) in warpCases.items():
             si, sf = cardShards(img, n), cardShards(flow, n)
             reach = rowReach(sf.parts, 1) + 1
             wins = shardWindows(si, reach)
             bounds = [shardWarpBound(wv, fp) for wv, fp in zip(wins, sf.parts)]
-            ms, rec = medianLaunchMs(lambda: warpSpmd(si, sf), isWarpKernel)
+            ms, rec = medianLaunchMs(lambda: warpSpmd(si, sf, mode), isWarpKernel)
             a = si.bounds[0]
-            plainMs = cudaTimeMs(lambda: warpPlain(wins[0], sf.parts[0], "border", (a, 0, si.rows)), 3)
+            plainMs = cudaTimeMs(lambda: warpPlain(wins[0], sf.parts[0], mode, (a, 0, si.rows)), 3)
+            libMs = sum(shardGridSampleMs(wv, fp, a - max(0, a - reach), mode)
+                        for wv, fp, a in zip(wins, sf.parts, si.bounds)) / n
             kernels[f"warpSpmd_{n}_{key}"] = dict(ms=ms, recorded=rec, plain_ms=plainMs, halo_rows=reach,
                                                   bound_ms=sum(b for b, _ in bounds) / n, bound_by=bounds[0][1],
-                                                  library_ms=None)
+                                                  library_ms=libMs)
         for lv in ("l3", "l2", "l1"):
             x, off, mask, weight, bias, dg = dcnInputs[lv]
             sx, so, sm = cardShards(x, n), cardShards(off, n), cardShards(mask, n)
@@ -1983,44 +2386,35 @@ def timingMesh(seed, gpu, warpInputs, dcnInputs, lutInput, lutModel):
                                                         bound_ms=sum(b for b, _ in bounds) / n,
                                                         bound_by=bounds[0][1], library_ms=None)
     emit(phase="kernel_timing", gpu=gpu, kernel="warpSpmd+deformConv2dSpmd+ailutTransformSpmd",
-         per_shard_median_launch=kernels, library="none: no PyTorch call computes a row-sharded warp, DCN or LUT")
+         per_shard_median_launch=kernels,
+         library="warpSpmd: F.grid_sample on each shard's halo window, mean a shard; none computes a DCN or LUT")
     return kernels
 
 
-def driveUnpathed(dcnInputs, lutInput, lutModel, n=2):
-    """K3's tier and K6 through the modules that reach them inside a
-    row-sharded stage, as the JAX package's stage traces do: EDVR's DCN
-    module (``ModulatedDeformConvPack``) and AiLUT's forward under
-    ``spmdTracing()`` on the [n] mesh; neither is on a product path (IconVSR's
-    row-sharded stages are the next slice; ``applyWhole`` is single-device).
-    Returns each wrapper's launches in that run and the outputs' agreement
-    with the single-device modules."""
-    from moephoto_tpu_torch.ops.deform import ModulatedDeformConvPack
+def driveUnpathed(lutInput, lutModel, n=2):
+    """K6 through the module that reaches it inside a row-sharded stage, as the
+    JAX package's stage traces do: AiLUT's forward under ``spmdTracing()`` on
+    the [n] mesh (on no product path: ``applyWhole`` is single-device, as in
+    JAX).  Returns its launches in that run; the output is held bit-equal to
+    the single-device module's."""
     from moephoto_tpu_torch.parallel import temporal
 
-    x, off, mask, weight, bias, dg = dcnInputs["l1"]
-    dcn = ModulatedDeformConvPack(x.shape[-1], weight.shape[0], dg).to("cuda", x.dtype)
-    with torch.no_grad():
-        dcn.weight.copy_(weight)
-        dcn.bias.copy_(bias)
-    feat = x.flip(0)
     with torch.inference_mode():
-        wantDcn, wantLut = dcn(x, feat), lutModel(lutInput)
+        want = lutModel(lutInput)
         with Meshed(cardMesh(n)):
             resetMeshCounts()
             temporal._spmdTracing[0] = True
             try:
-                gotDcn, gotLut = dcn(x, feat), lutModel(lutInput)
+                got = lutModel(lutInput)
             finally:
                 temporal._spmdTracing[0] = False
             counts = readMeshCounts()
     errs = {}
-    holdEqual(errs, "ModulatedDeformConvPack", gotDcn, wantDcn)
-    holdEqual(errs, "AiLUT", gotLut, wantLut)
-    if counts["deformConv2dSpmd"] != n or counts["ailutTransformSpmd"] != n:
-        raise AssertionError(f"modules under spmdTracing on {n} shards launched {counts}")
+    holdEqual(errs, "AiLUT", got, want)
+    if counts["ailutTransformSpmd"] != n:
+        raise AssertionError(f"AiLUT under spmdTracing on {n} shards launched {counts}")
     emit(phase="mesh_modules", shards=n, launches=counts, max_abs_err=errs)
-    return counts["deformConv2dSpmd"], counts["ailutTransformSpmd"]
+    return counts["ailutTransformSpmd"]
 
 
 def main(argv=None) -> int:
@@ -2032,6 +2426,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from moephoto_tpu_torch.config import config
+    from moephoto_tpu_torch.models.estrnn import modelPaths as estrnnPaths
     from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
     from moephoto_tpu_torch.ops import _build, deform, fusedup, lut, warp
     from moephoto_tpu_torch.engine.tiling import planAxis
@@ -2058,12 +2453,19 @@ def main(argv=None) -> int:
         "ptxas": [ln.strip() for ln in _build.buildInfo[src]["log"].splitlines()
                   if "registers" in ln or "spill" in ln]} for src in sources})
 
+    phaseSeconds, since = {"build": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def mark(name):  # the seconds since the last mark, under ``name``
+        now = time.perf_counter()
+        phaseSeconds[name], since[0] = now - since[0], now
+
     errs = checkKernel(args.seed)
     lutErr = checkLut(args.seed)
     warpErr = checkWarp(args.seed)
     dcnErr = checkDcn(args.seed)
     clampErr = checkLutClamped(args.seed)
     clampLaunches, clampGateErr = runParity()
+    mark("kernels+parity")
 
     def liteLaunches(w, h, scale):  # fusedUpHeads launches of one lite image: its tile chunks
         spec = SR_REGISTRY[f"lite{scale}"]["spec"]
@@ -2081,34 +2483,45 @@ def main(argv=None) -> int:
                               ("lite", "model.pth", synthLite2Params(2, args.seed)),
                               ("dn_lite5", "model_new.pth", synthNetDNParams(args.seed)),
                               ("l15", "model_new.pth", synthSEDNParams(args.seed)),
-                              ("a2", "model_new.pth", synthMyNetParams(2, args.seed))):
+                              ("a2", "model_new.pth", synthMyNetParams(2, args.seed)),
+                              ("ESTRNN", os.path.basename(estrnnPaths["1ms8ms"]), smokeESTRNNParams(args.seed))):
             os.makedirs(os.path.join(work, sub), exist_ok=True)
             torch.save(sd, os.path.join(work, sub, name))
         config.modelDir, config.opsPath, config.ffmpegPath = work, os.path.join(work, "ops.json"), fakeFfmpeg(work)
         launches = runMainPath(args.seed, work)
         checkCrop(args.seed)
+        mark("main")
         lutLaunches, lutInput, lutModel = runRetouch(args.seed, work)
         checkRetouchCrop(args.seed)
         checkGenerate(args.seed)
+        mark("retouch")
         kt = timing(args.seed, smi)
         timingRetouch(args.seed, smi)
         lt = timingLut(args.seed, smi, lutInput, lutModel)
+        mark("timing")
         warpLaunches, pathInputs, slomoFrames = runVideo(work)
         checkVideoCrop(args.seed)
         wt = timingSlomo(args.seed, smi, pathInputs)
-        dcnLaunches, dcnInputs = runVsr(work)
+        mark("video")
+        dcnLaunches, dcnInputs, vsrFrames, edvrCalls, vsrWarps = runVsr(work)
         checkVsrCrop(args.seed)
         dt = timingVsr(args.seed, smi, dcnInputs)
+        mark("vsr")
+        demobFrames = runDemob(work)
+        checkDemobCrop(args.seed)
+        timingDemob(args.seed, smi)
+        mark("demob")
         runImageChain("dn_chain", DN_CHAIN, (W, H), (W * UPSCALE, H * UPSCALE), args.seed + 9, work,
                       liteLaunches(W, H, UPSCALE))
         runImageChain("preset", PRESET, (PRESET_W, PRESET_H), (2 * PRESET_W, 2 * PRESET_H), args.seed + 10, work,
                       liteLaunches(PRESET_W, PRESET_H, 2))
         checkDnCrop(args.seed)
         ct = timingDn(args.seed, smi)
+        mark("dn")
 
         from PIL import Image
 
-        meshErr = checkMeshKernels(args.seed, pathInputs, dcnInputs, lutInput, lutModel)
+        meshErr = checkMeshKernels(args.seed, pathInputs, vsrWarps, dcnInputs, lutInput, lutModel)
         with Image.open(os.path.join(work, "out.png")) as out:
             runMeshImage(work, 2, np.asarray(out))
         k2aLaunches = {n: runMeshVideo(work, n, slomoFrames) for n in MESH_SIZES}
@@ -2117,8 +2530,16 @@ def main(argv=None) -> int:
             runMeshVideo(work, n, slomoFrames, UHD, UHD_FRAMES)
         del slomoFrames
         checkMeshVideoCrop(args.seed)
-        tierLaunches, k6Launches = driveUnpathed(dcnInputs, lutInput, lutModel)
-        mk = timingMesh(args.seed, smi, pathInputs, dcnInputs, lutInput, lutModel)
+        tierLaunches = {n: runMeshVsr(work, n, vsrFrames, edvrCalls) for n in MESH_SIZES}
+        for n in MESH_SIZES:
+            runMeshDemob(work, n, demobFrames)
+        del vsrFrames, demobFrames
+        checkMeshModelCrops(args.seed)
+        k6Launches = driveUnpathed(lutInput, lutModel)
+        mk = timingMesh(args.seed, smi, pathInputs, vsrWarps, dcnInputs, lutInput, lutModel)
+        timingMeshModels(args.seed, smi)
+        mark("mesh")
+    emit(phase="phase_seconds", seconds=phaseSeconds, total=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
@@ -2156,7 +2577,8 @@ def main(argv=None) -> int:
     } for name, source, replaces, n, shape in (
         ("warpSpmd", "moephoto_tpu_torch/csrc/warp.cu", "moephoto_tpu/ops/warp.py:264", k2aLaunches[2],
          "544x960x32_bfloat16"),
-        ("deformConv2dSpmd", "moephoto_tpu_torch/csrc/dcn.cu", "moephoto_tpu/ops/deform.py:225", tierLaunches, "l1"),
+        ("deformConv2dSpmd", "moephoto_tpu_torch/csrc/dcn.cu", "moephoto_tpu/ops/deform.py:225", tierLaunches[2][0],
+         "l1"),
         ("ailutTransformSpmd", "moephoto_tpu_torch/csrc/ailut.cu", "moephoto_tpu/ops/lutkernel.py:271", k6Launches,
          "1080p"))]}), flush=True)
     print(smi, flush=True)

@@ -147,8 +147,28 @@ def leakyRelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
 sigmoid = torch.sigmoid
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU, as the JAX package's ``jax.nn.gelu(x,
+    approximate=False)``."""
+    return F.gelu(x, approximate="none")
+
+
+def convTranspose2d(cin: int, cout: int, k: int = 3) -> torch.nn.ConvTranspose2d:
+    """The JAX package's ``convTranspose2d(stride=2, padding=1,
+    output_padding=1)``: exactly twice the rows and columns.  Its weight
+    is a torch ConvTranspose2d weight (I, O, kH, kW); ``fromJaxParams``
+    takes it back from the JAX package's flipped HWIO form."""
+    return torch.nn.ConvTranspose2d(cin, cout, k, stride=2, padding=1, output_padding=1)
+
+
+def linear(cin: int, cout: int) -> torch.nn.Linear:
+    """The JAX package's ``linear``: weight (out, in) as the checkpoint's."""
+    return torch.nn.Linear(cin, cout)
+
+
 def conv(layer: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A conv layer on an NHWC tensor, run on its NCHW view -> NHWC."""
+    """A conv layer on an NHWC tensor, run on its NCHW view -> NHWC (a
+    ConvTranspose2d too)."""
     return layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 

@@ -18,10 +18,20 @@ keyframe clip, the recurrences are Python loops over the chunk.
 Tensors are NHWC at every function boundary; convolutions run on NCHW
 views of them (channels-last in memory on the card).  The flows and the
 propagation warps run in fp32, the rest in the model's dtype.
+
+Under ``config.meshShape`` every stage runs row-sharded
+(``parallel/temporal.py`` :func:`rowStage`), as the JAX package's
+``spyJit``, ``edvrJit``, ``bScanJit``, ``fScanJit`` and ``upJit``: the
+frames' rows split at multiples of ``ALIGN``, each conv segment takes a
+halo of its stated row reach (``parallel/sharded.py`` :func:`rowSegment`),
+SpyNet's and the recurrences' warps go through K2a
+(:func:`ops.warp.backWarpSpmd`) and EDVR's four DCNs through K3's tier
+(:func:`ops.deform.deformConv2dSpmd`).
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import List, Optional
 
 import numpy as np
@@ -34,7 +44,11 @@ from moephoto_tpu_torch.models.api import avgPool2d, conv, leakyRelu, maxPool2d,
 from moephoto_tpu_torch.models.blocks import ConvResidualBlocks, ResidualBlockNoBN
 from moephoto_tpu_torch.models.streamcommon import StreamOpt, alignPad, makeStreamFunc
 from moephoto_tpu_torch.ops.deform import ModulatedDeformConvPack
-from moephoto_tpu_torch.ops.warp import backWarp
+from moephoto_tpu_torch.ops.warp import backWarp, backWarpSpmd, rowReach
+from moephoto_tpu_torch.parallel import sharded
+from moephoto_tpu_torch.parallel.mesh import replicaOn
+from moephoto_tpu_torch.parallel.sharded import RowShards, rowSegment, zipShards
+from moephoto_tpu_torch.parallel.temporal import rowStage
 from moephoto_tpu_torch.progress import Node
 
 RefTime = 7
@@ -57,11 +71,101 @@ def _conv(cin: int, cout: int, k: int = 3, stride: int = 1) -> nn.Conv2d:
 lrelu = lambda x: leakyRelu(x, 0.1)
 cat = lambda xs: torch.cat(xs, -1)
 
+# Row-sharded stages.  The frames (padded to 64-row multiples) split at
+# multiples of ALIGN rows, so SpyNet's five halvings, EDVR's two stride-2
+# levels and TSA's two poolings cut whole rows.  Each segment's halo is its
+# row reach in its input's rows:
+#   SpyNet's basic module (five 7x7 convs): 15;
+#   EDVR's feature extraction (conv_first, five residual blocks): 11; each
+#   stride-2 level (a 3x3 stride-2 conv, one input row, and a 3x3 conv at
+#   half size, two): 3, rounded up to an even count so the crop is whole
+#   rows; a PCD level's offset convs and conv_offset: 3 at L3 (two convs and
+#   conv_offset), 4 at L2 and L1 (three and conv_offset), the cascade 3;
+#   feat_conv 1; the 2x resizes of the offsets and features 1;
+#   TSA (a 3x3 temporal conv: 1; two 3x3 stride-2 poolings: 1 and 2; two
+#   3x3 convs at 1/4: 8; the 2x resize back to 1/2: 4; to full size: 2; the
+#   last 3x3 conv: 1): 19, rounded up to a multiple of 4 so both poolings
+#   keep their phase;
+#   a recurrence step (the fusion 3x3 conv at keyframes, then the trunk's
+#   input conv and two 3x3 convs a residual block): 1 + 1 + 2 numBlocks;
+#   the upsampler (3x3 convs at 1x, 2x, 4x, 4x: 1 + 1/2 + 1/4 + 1/4; the x4
+#   bilinear resize of the frame: 1): 2, at scale 4.
+# The up-sampled flow of each SpyNet level is computed whole (an
+# align_corners resize maps rows by the global sizes) and cut at the
+# level's bounds.  A segment whose input lies at GATHER_FROM of the frame's
+# rows or coarser runs gathered, at any size (SpyNet's levels at 1/4 and
+# coarser, EDVR's L3 segments), as IFRNet's coarse levels do since the flows
+# and offsets estimated there move the whole frame when a bf16 rounding
+# differs; a shard shorter than a segment's halo runs it gathered too.  TSA
+# runs gathered (GATHER_TSA; the tests switch it off to hold TSA's halo):
+# cuDNN picks its algorithm by shape, and in bf16 at 640x360 TSA on shards
+# of 192 and 96 rows rounded 0.115 % of its outputs one ulp apart from the
+# whole clip's, which the recurrences carry into every frame; every other
+# segment rounded none apart there (PERF.md; ``sharded.checkingSegments``).
+ALIGN = 32
+GATHER_FROM = Fraction(1, 4)
+GATHER_TSA = True
+SPY_HALO = 15
+EXTRACT_HALO = 11
+DOWN_HALO = 4
+TSA_HALO = 20
+UP_HALO = 2
 
-def propWarp(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+
+def coarse(frac) -> bool:
+    """Whether a segment whose input is at ``frac`` of the frame's rows runs gathered."""
+    return Fraction(frac) <= GATHER_FROM
+
+
+def propWarp(feat, flow, reach: Optional[int] = None):
     """The recurrences' feature warp: ``backWarp`` in fp32 with zeros
-    padding (the reference's default), back to the features' dtype."""
+    padding (the reference's default), back to the features' dtype.  Row
+    shards take K2a (:func:`ops.warp.backWarpSpmd`), ``reach`` the flows'
+    row reach read once for the chunk."""
+    if isinstance(feat, RowShards):
+        dtype = feat.parts[0].dtype
+        return backWarpSpmd(feat.map(lambda p: p.float()), flow, "zeros", reach).map(lambda p: p.to(dtype))
     return backWarp(feat.float(), flow, "zeros").to(feat.dtype)
+
+
+def catRows(xs):
+    """Tensors (or row shards with one set of bounds) concatenated on axis 0."""
+    return zipShards(lambda *ps: torch.cat(ps), *xs) if isinstance(xs[0], RowShards) else torch.cat(xs)
+
+
+def catC(xs):
+    """Tensors (or row shards with one set of bounds) concatenated on the channels."""
+    return zipShards(lambda *ps: cat(ps), *xs) if isinstance(xs[0], RowShards) else cat(xs)
+
+
+def seg(fn, x, halo: int, scale=1, gather: bool = False):
+    """``fn`` on a tensor, or on row shards a :func:`rowSegment` of ``halo`` rows."""
+    return rowSegment(fn, x, halo, scale, gather) if isinstance(x, RowShards) else fn(x)
+
+
+def each(fn, x, axis: Optional[int] = None):
+    """``fn`` on a tensor, or on every part of row shards (their rows moved to ``axis``)."""
+    return x.map(fn, axis) if isinstance(x, RowShards) else fn(x)
+
+
+def rowsOf(x, t: int):
+    """Item ``t`` of axis 0 kept as a batch of one (row shards stay row shards)."""
+    return x.map(lambda p: p[t : t + 1]) if isinstance(x, RowShards) else x[t : t + 1]
+
+
+def likeShards(x, like: RowShards):
+    """``x`` as row shards at ``like``'s bounds on axis 1 (None and row
+    shards as they are)."""
+    return x if x is None or isinstance(x, RowShards) else RowShards.split(x, like.devices, 1, bounds=like.bounds)
+
+
+def toFloat(x):
+    return x.map(lambda p: p.float()) if isinstance(x, RowShards) else x.float()
+
+
+def on(module, v: torch.Tensor):
+    """``module`` with its weights on ``v``'s device (a shard's card)."""
+    return replicaOn(module, v.device)
 
 
 class SpyNet(nn.Module):
@@ -74,24 +178,62 @@ class SpyNet(nn.Module):
         layers = lambda: [m for i in range(5) for m in (_conv(cs[i], cs[i + 1], 7), nn.ReLU())][:-1]
         self.basic_module = nn.ModuleList(nn.Sequential(*layers()) for _ in range(6))
 
-    def forward(self, pair: torch.Tensor) -> torch.Tensor:
-        """pair (B, 2, H, W, 3), H and W multiples of 64 -> flow (B, H, W, 2)
-        in the pair's dtype."""
+    @staticmethod
+    def _normalised(pair: torch.Tensor, side: int) -> torch.Tensor:
         mean = torch.tensor(_SPY_MEAN, device=pair.device).to(pair.dtype)
         std = torch.tensor(_SPY_STD, device=pair.device).to(pair.dtype)
-        ref = [(pair[:, 0] - mean) / std]
-        supp = [(pair[:, 1] - mean) / std]
+        return (pair[:, side] - mean) / std
+
+    def _up(self, flow: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        return resizeBilinear(flow, h, w, align_corners=True) * 2.0
+
+    def _level(self, level: int, ref: torch.Tensor, supp: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        up = self._up(flow, ref.shape[1], ref.shape[2])
+        warped = backWarp(supp, up, "border")
+        return conv(on(self.basic_module[level], ref), cat([ref, warped, up])) + up
+
+    def _forwardPlain(self, pair: torch.Tensor) -> torch.Tensor:
+        ref = [self._normalised(pair, 0)]
+        supp = [self._normalised(pair, 1)]
         for _ in range(5):
             ref.insert(0, avgPool2d(ref[0], 2, 2, count_include_pad=False))
             supp.insert(0, avgPool2d(supp[0], 2, 2, count_include_pad=False))
         B, H0, W0, _ = ref[0].shape
         flow = pair.new_zeros((B, H0 // 2, W0 // 2, 2))
         for level in range(6):
-            h, w = ref[level].shape[1], ref[level].shape[2]
-            up = resizeBilinear(flow, h, w, align_corners=True) * 2.0
-            warped = backWarp(supp[level], up, "border")
-            flow = conv(self.basic_module[level], cat([ref[level], warped, up])) + up
+            flow = self._level(level, ref[level], supp[level], flow)
         return flow
+
+    def _forwardSharded(self, pair: RowShards) -> RowShards:
+        """The pyramid on row shards (the pair's rows on axis 2): each level's
+        up-sampled flow computed whole and cut at the level's bounds, the warp
+        through K2a, the basic module a segment of SPY_HALO rows; a level at
+        GATHER_FROM of the rows or coarser runs gathered."""
+        down = lambda x: rowSegment(lambda v: avgPool2d(v, 2, 2, count_include_pad=False), x, 0, Fraction(1, 2))
+        ref = [pair.map(lambda p: self._normalised(p, 0), axis=1)]
+        supp = [pair.map(lambda p: self._normalised(p, 1), axis=1)]
+        for _ in range(5):
+            ref.insert(0, down(ref[0]))
+            supp.insert(0, down(supp[0]))
+        B, W0 = pair.shape[0], ref[0].shape[2]
+        flow = ref[0].parts[0].new_zeros((B, ref[0].rows // 2, W0 // 2, 2))
+        for level in range(6):
+            r, s = ref[level], supp[level]
+            whole = flow.gather() if isinstance(flow, RowShards) else flow
+            sharded.stats["gathers"] += 1
+            if coarse(Fraction(r.rows, pair.rows)):
+                flow = self._level(level, r.gather(), s.gather(), whole)
+                continue
+            up = RowShards.split(self._up(whole, r.rows, r.shape[2]), r.devices, 1, bounds=r.bounds)
+            x = catC([r, backWarpSpmd(s, up, "border"), up])
+            flow = zipShards(lambda a, b: a + b,
+                             rowSegment(lambda v: conv(on(self.basic_module[level], v), v), x, SPY_HALO), up)
+        return flow if isinstance(flow, RowShards) else RowShards.split(flow, pair.devices, 1, bounds=pair.bounds)
+
+    # pair (B, 2, H, W, 3), H and W multiples of 64 -> flow (B, H, W, 2) in the
+    # pair's dtype.  Under a mesh the pair's rows (axis 2) shard and the flow
+    # stays row shards (axis 1).
+    forward = rowStage(_forwardPlain, _forwardSharded, (None, 2), (1,), align=ALIGN)
 
 
 class PCDAlignment(nn.Module):
@@ -110,28 +252,45 @@ class PCDAlignment(nn.Module):
         self.cas_offset_conv2 = _conv(c, c)
         self.cas_dcnpack = ModulatedDeformConvPack(c, c, dg)
 
-    def forward(self, nbr: List[torch.Tensor], ref: List[torch.Tensor]) -> torch.Tensor:
-        """nbr, ref: the 3 levels, full resolution first, each NHWC."""
+    def forward(self, nbr: List, ref: List):
+        """nbr, ref: the 3 levels, full resolution first, each NHWC, or each
+        row shards on axis 1: then each level's offset convs with
+        conv_offset are one segment, the DCN goes through K3's tier,
+        feat_conv and the 2x resizes are segments of their own, and L3's
+        segments run gathered (GATHER_FROM)."""
+        c = nbr[0].shape[-1]
         upOffset = upFeat = feat = None
         for i in (3, 2, 1):
-            lv = f"l{i}"
-            offset = lrelu(conv(self.offset_conv1[lv], cat([nbr[i - 1], ref[i - 1]])))
-            if i == 3:
-                offset = lrelu(conv(self.offset_conv2[lv], offset))
-            else:
-                offset = lrelu(conv(self.offset_conv2[lv], cat([offset, upOffset])))
-                offset = lrelu(conv(self.offset_conv3[lv], offset))
-            feat = self.dcn_pack[lv](nbr[i - 1], offset)
+            lv, gather = f"l{i}", coarse(Fraction(1, 2 ** (i - 1)))
+            pack = self.dcn_pack[lv]
+
+            def offsets(v, i=i, lv=lv, pack=pack):
+                offset = lrelu(conv(on(self.offset_conv1[lv], v), v[..., : 2 * c]))
+                if i == 3:
+                    offset = lrelu(conv(on(self.offset_conv2[lv], v), offset))
+                else:
+                    offset = lrelu(conv(on(self.offset_conv2[lv], v), cat([offset, v[..., 2 * c :]])))
+                    offset = lrelu(conv(on(self.offset_conv3[lv], v), offset))
+                return cat([offset, on(pack, v).offsetsOf(offset)])
+
+            args = [nbr[i - 1], ref[i - 1]] + ([upOffset] if i < 3 else [])
+            out = seg(offsets, catC(args), 3 if i == 3 else 4, gather=gather)
+            offset = each(lambda p: p[..., :c], out)
+            feat = pack.sample(nbr[i - 1], each(lambda p: p[..., c:], out))
             if i < 3:
-                feat = conv(self.feat_conv[lv], cat([feat, upFeat]))
+                feat = seg(lambda v, lv=lv: conv(on(self.feat_conv[lv], v), v), catC([feat, upFeat]), 1)
             if i > 1:
-                feat = lrelu(feat)
-                h, w = offset.shape[1], offset.shape[2]
-                upOffset = resizeBilinear(offset, 2 * h, 2 * w) * 2.0
-                upFeat = resizeBilinear(feat, 2 * h, 2 * w)
-        offset = lrelu(conv(self.cas_offset_conv1, cat([feat, ref[0]])))
-        offset = lrelu(conv(self.cas_offset_conv2, offset))
-        return lrelu(self.cas_dcnpack(feat, offset))
+                feat = each(lrelu, feat)
+                up = seg(lambda v: resizeBilinear(v, 2 * v.shape[1], 2 * v.shape[2]), catC([offset, feat]), 1, 2,
+                         gather)
+                upOffset, upFeat = each(lambda p: p[..., :c] * 2.0, up), each(lambda p: p[..., c:], up)
+
+        def casOffsets(v):
+            offset = lrelu(conv(on(self.cas_offset_conv1, v), v))
+            offset = lrelu(conv(on(self.cas_offset_conv2, v), offset))
+            return on(self.cas_dcnpack, v).offsetsOf(offset)
+
+        return each(lrelu, self.cas_dcnpack.sample(feat, seg(casOffsets, catC([feat, ref[0]]), 3)))
 
 
 class TSAFusion(nn.Module):
@@ -188,22 +347,41 @@ class EDVR(nn.Module):
         self.fusion = TSAFusion(c, nFrames)
         self.calls = 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, N, H, W, 3), H and W multiples of 4 -> (B, H, W, C).  The
-        N neighbours of each clip align as one batch of B N, as in JAX."""
+    def _extract(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(on(self.feature_extraction, x), lrelu(conv(on(self.conv_first, x), x)))
+
+    @staticmethod
+    def _down(first, second, x: torch.Tensor) -> torch.Tensor:
+        return lrelu(conv(on(second, x), lrelu(conv(on(first, x), x))))
+
+    @staticmethod
+    def _centre(lv: torch.Tensor, B: int, N: int) -> torch.Tensor:
+        s = lv.shape[1:]
+        return lv.reshape(B, N, *s)[:, N // 2 : N // 2 + 1].expand(B, N, *s).reshape(B * N, *s)
+
+    def _fuse(self, aligned: torch.Tensor, B: int, N: int) -> torch.Tensor:
+        return on(self.fusion, aligned)(aligned.reshape(B, N, *aligned.shape[1:]), N // 2)
+
+    def _forward(self, x):
+        """x (B, N, H, W, 3), or row shards of it on axis 2: then the
+        feature extraction, both stride-2 levels, PCD and TSA (gathered
+        while GATHER_TSA) are segments of their stated reach, and the
+        features (B, H, W, C) stay row shards on axis 1."""
         self.calls += 1
-        B, N, H, W, C = x.shape
-        center = N // 2
-        l1 = conv(self.feature_extraction, lrelu(conv(self.conv_first, x.reshape(B * N, H, W, C))))
-        l2 = lrelu(conv(self.conv_l2_2, lrelu(conv(self.conv_l2_1, l1))))
-        l3 = lrelu(conv(self.conv_l3_2, lrelu(conv(self.conv_l3_1, l2))))
+        B, N = x.shape[:2]
+        flat = each(lambda p: p.reshape(B * N, *p.shape[2:]), x, axis=1)
+        l1 = seg(self._extract, flat, EXTRACT_HALO)
+        l2 = seg(lambda v: self._down(self.conv_l2_1, self.conv_l2_2, v), l1, DOWN_HALO, Fraction(1, 2))
+        l3 = seg(lambda v: self._down(self.conv_l3_1, self.conv_l3_2, v), l2, DOWN_HALO, Fraction(1, 2),
+                 coarse(Fraction(1, 2)))
         nbr = [l1, l2, l3]
-        ref = []
-        for lv in nbr:
-            s = lv.shape[1:]
-            ref.append(lv.reshape(B, N, *s)[:, center : center + 1].expand(B, N, *s).reshape(B * N, *s))
-        aligned = self.pcd_align(nbr, ref).reshape(B, N, H, W, -1)
-        return self.fusion(aligned, center)
+        aligned = self.pcd_align(nbr, [each(lambda p: self._centre(p, B, N), lv) for lv in nbr])
+        return seg(lambda v: self._fuse(v, B, N), aligned, TSA_HALO, gather=GATHER_TSA)
+
+    # x (B, N, H, W, 3), H and W multiples of 4 -> (B, H, W, C).  The N
+    # neighbours of each clip align as one batch of B N, as in JAX.  Under a
+    # mesh the clip's rows (axis 2) shard and the features stay row shards.
+    forward = rowStage(_forward, _forward, (None, 2), (1,), align=ALIGN)
 
 
 class Upsample(nn.Sequential):
@@ -234,47 +412,111 @@ class IconVSR(nn.Module):
         self.forward_fusion = _conv(2 * NumFeat, NumFeat)
         self.upsample = Upsample()
 
-    def backwardScan(self, inp, flow, warps, kfs) -> torch.Tensor:
-        """Backward recurrence over one chunk (videoSR.py:415-431), last
-        frame first, from a zero state: inp (T, H, W, 3) in the model's
-        dtype, flow (T, H, W, 2) fp32, ``warps[t]`` whether frame t has a
-        flow, ``kfs[t]`` its keyframe features (H, W, C) or None ->
-        (T, H, W, C)."""
+    @staticmethod
+    def _step(fusion, trunk, featProp: torch.Tensor, kf: Optional[torch.Tensor], others) -> torch.Tensor:
+        """One recurrence step: the keyframe fusion when ``kf`` is given, then
+        the trunk on cat(others + [featProp])."""
+        if kf is not None:
+            featProp = conv(fusion, cat([featProp, kf]))
+        return conv(trunk, cat(list(others) + [featProp]))
+
+    def _stepSharded(self, fusion, trunk, featProp: RowShards, kf, others) -> RowShards:
+        """:meth:`_step` on row shards: one segment of the step's reach (the
+        fusion's 3x3 conv, the trunk's input conv and two 3x3 convs a block)."""
+        pieces = [likeShards(p, featProp) for p in [featProp] + ([kf] if kf is not None else []) + list(others)]
+        k = len(pieces) - len(others)
+
+        def step(v):
+            ps = v.split([p.shape[-1] for p in pieces], -1)
+            return self._step(on(fusion, v), on(trunk, v), ps[0], ps[1] if k == 2 else None, ps[k:])
+
+        return rowSegment(step, catC(pieces), k + 2 * len(trunk[2]))
+
+    def _backwardScanPlain(self, inp, flow, warps, kfs) -> torch.Tensor:
         T, H, W, _ = inp.shape
         featProp = inp.new_zeros((1, H, W, NumFeat))
         outs = [None] * T
         for t in reversed(range(T)):
             if warps[t]:
                 featProp = propWarp(featProp, flow[t : t + 1])
-            if kfs[t] is not None:
-                featProp = conv(self.backward_fusion, cat([featProp, kfs[t][None]]))
-            featProp = conv(self.backward_trunk, cat([inp[t : t + 1], featProp]))
-            outs[t] = featProp[0]
-        return torch.stack(outs)
+            featProp = self._step(self.backward_fusion, self.backward_trunk, featProp, kfs[t], [inp[t : t + 1]])
+            outs[t] = featProp
+        return torch.cat(outs)
 
-    def forwardScan(self, featProp, inp, bwd, flow, warps, kfs):
-        """Forward recurrence (videoSR.py:446-460) from ``featProp``
-        (1, H, W, C), with ``bwd[t]`` the backward pass's features of
-        frame t -> (outputs (T, H, W, C), the state after the last frame)."""
+    def _backwardScanSharded(self, inp: RowShards, flow: RowShards, warps, kfs) -> RowShards:
+        """The backward recurrence on row shards: the flows' row reach read
+        once for the chunk, each step's warp through K2a and its fusion and
+        trunk one segment (:meth:`_stepSharded`)."""
+        reach = rowReach(flow.parts, 1)
+        featProp = inp.map(lambda p: p.new_zeros((1,) + p.shape[1:3] + (NumFeat,)))
+        outs = [None] * inp.shape[0]
+        for t in reversed(range(inp.shape[0])):
+            if warps[t]:
+                featProp = propWarp(featProp, rowsOf(flow, t), reach)
+            featProp = self._stepSharded(self.backward_fusion, self.backward_trunk, featProp, kfs[t],
+                                         [rowsOf(inp, t)])
+            outs[t] = featProp
+        return catRows(outs)
+
+    # Backward recurrence over one chunk (videoSR.py:415-431), last frame first,
+    # from a zero state: inp (T, H, W, 3) in the model's dtype, flow (T, H, W, 2)
+    # fp32, ``warps[t]`` whether frame t has a flow, ``kfs[t]`` its keyframe
+    # features (1, H, W, C) or None -> (T, H, W, C).  Under a mesh inp and flow
+    # shard (or come as row shards) and so do the keyframe features and the
+    # outputs.
+    backwardScan = rowStage(_backwardScanPlain, _backwardScanSharded, (None, 1, 1, None, None), (1,), align=ALIGN)
+
+    def _forwardScanPlain(self, featProp, inp, bwd, flow, warps, kfs):
         outs = []
         for t in range(inp.shape[0]):
             if warps[t]:
                 featProp = propWarp(featProp, flow[t : t + 1])
-            if kfs[t] is not None:
-                featProp = conv(self.forward_fusion, cat([featProp, kfs[t][None]]))
-            featProp = conv(self.forward_trunk, cat([inp[t : t + 1], bwd[t][None], featProp]))
-            outs.append(featProp[0])
-        return torch.stack(outs), featProp
+            featProp = self._step(self.forward_fusion, self.forward_trunk, featProp, kfs[t],
+                                  [inp[t : t + 1], bwd[t]])
+            outs.append(featProp)
+        return torch.cat(outs), featProp
 
-    def upsampleChunk(self, inp: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-        """(T, H, W, 3), (T, H, W, C) -> (T, 4H, 4W, 3) fp32: the upsampler
-        plus the bilinear x4 of the input, ``UpSubBatch`` frames a call."""
+    def _forwardScanSharded(self, featProp, inp: RowShards, bwd, flow: RowShards, warps, kfs):
+        """The forward recurrence on row shards, as the backward one."""
+        featProp = likeShards(featProp, inp)
+        reach = rowReach(flow.parts, 1)
         outs = []
-        for s in range(0, inp.shape[0], UpSubBatch):
-            i, f = inp[s : s + UpSubBatch], feat[s : s + UpSubBatch]
-            up = resizeBilinear(i, 4 * i.shape[1], 4 * i.shape[2])
-            outs.append(conv(self.upsample, f).float() + up.float())
-        return torch.cat(outs)
+        for t in range(inp.shape[0]):
+            if warps[t]:
+                featProp = propWarp(featProp, rowsOf(flow, t), reach)
+            featProp = self._stepSharded(self.forward_fusion, self.forward_trunk, featProp, kfs[t],
+                                         [rowsOf(inp, t), bwd[t]])
+            outs.append(featProp)
+        return catRows(outs), featProp
+
+    # Forward recurrence (videoSR.py:446-460) from ``featProp`` (1, H, W, C),
+    # with ``bwd[t]`` the backward pass's features of frame t (1, H, W, C) ->
+    # (outputs (T, H, W, C), the state after the last frame).  Under a mesh
+    # both outputs stay row shards.
+    forwardScan = rowStage(_forwardScanPlain, _forwardScanSharded, (None, None, 1, None, 1, None, None), (1, 1),
+                           align=ALIGN)
+
+    def _upsample(self, v: torch.Tensor) -> torch.Tensor:
+        f, i = v[..., :NumFeat], v[..., NumFeat:]
+        up = resizeBilinear(i, 4 * i.shape[1], 4 * i.shape[2])
+        return conv(on(self.upsample, v), f).float() + up.float()
+
+    def _upsampleChunkPlain(self, inp: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self._upsample(cat([feat[s : s + UpSubBatch], inp[s : s + UpSubBatch]]))
+                          for s in range(0, inp.shape[0], UpSubBatch)])
+
+    def _upsampleChunkSharded(self, inp: RowShards, feat: RowShards) -> RowShards:
+        """The upsampler on row shards, each sub-batch a segment of UP_HALO
+        rows at scale 4."""
+        return catRows([rowSegment(self._upsample, zipShards(lambda a, b, s=s: cat([a[s : s + UpSubBatch],
+                                                                                     b[s : s + UpSubBatch]]),
+                                                             feat, inp), UP_HALO, 4)
+                        for s in range(0, inp.shape[0], UpSubBatch)])
+
+    # (T, H, W, 3), (T, H, W, C) -> (T, 4H, 4W, 3) fp32: the upsampler plus the
+    # bilinear x4 of the input, ``UpSubBatch`` frames a call.  Under a mesh the
+    # rows shard and the frames are gathered.
+    upsampleChunk = rowStage(_upsampleChunkPlain, _upsampleChunkSharded, (None, 1, 1), None, align=ALIGN)
 
 
 # --------------------------------------------------------------------------
@@ -329,8 +571,9 @@ def getOpt(option: Optional[dict] = None, device: Optional[torch.device] = None,
 
 
 def _row(item):
-    """A lazy (ref, row) stream item as its row, or None."""
-    return None if item is None else item[0][item[1]]
+    """A lazy (ref, row) stream item as its row kept as a batch of one (row
+    shards stay row shards), or None."""
+    return None if item is None else rowsOf(item[0], item[1])
 
 
 def _stackPairs(items, like: torch.Tensor, dtype) -> torch.Tensor:
@@ -391,10 +634,10 @@ def doVSR(func, node, opt: VSROpt):
             if kfPos:
                 clips = torch.stack([f for i in kfPos for f in keyframeClips[i]]).to(opt.dtype)
                 clips = clips.reshape((-1, RefTime) + clips.shape[1:])
-                kfFeats = torch.cat([model.edvr(clips[j : j + 1]) for j in range(clips.shape[0])])
+                kfFeats = catRows([model.edvr(clips[j : j + 1]) for j in range(clips.shape[0])])
                 for rank, i in enumerate(kfPos):
                     featItems[i] = (kfFeats, rank)
-            flows = model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype)).float()
+            flows = toFloat(model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype)))
             outs = model.backwardScan(inp.to(opt.dtype), flows, warps, [_row(it) for it in featItems])
         keyframeFeatFwd.put(featItems)
         out = [(outs, i) for i in range(n)]
@@ -412,7 +655,7 @@ def doVSR(func, node, opt: VSROpt):
             featProp = forwardState["featProp"]
             if featProp is None:
                 featProp = inp.new_zeros((1, h, w, NumFeat), dtype=opt.dtype)
-            flows = model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype).flip(1)).float()  # reversed pairs
+            flows = toFloat(model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype).flip(1)))  # reversed pairs
             x = inp.to(opt.dtype)
             # each backward window's first item is a real frame's (outputs, row)
             feats, featProp = model.forwardScan(featProp, x, [_row(b[0]) for b in backward[:n]], flows,

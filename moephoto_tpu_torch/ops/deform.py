@@ -314,9 +314,21 @@ class ModulatedDeformConvPack(nn.Module):
         # weight (load_state_dict) or a move of the module makes the next call build it anew
         self._tapsCache = PrepCache()
 
-    def forward(self, x: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-        """x, feat NHWC -> NHWC."""
-        out = self.conv_offset(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    def offsetsOf(self, feat: torch.Tensor) -> torch.Tensor:
+        """``conv_offset`` on ``feat`` (NHWC): the offsets and the mask's logits."""
+        return self.conv_offset(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def sample(self, x, out):
+        """The DCN on ``x`` with :meth:`offsetsOf`'s output ``out``, both NHWC
+        tensors, or both row shards (K3's tier, :func:`deformConv2dSpmd`, as a
+        row-sharded stage computes ``out`` in a segment of its own)."""
         n = 2 * self.deformableGroups * 9
+        if isinstance(x, sharded.RowShards):
+            return deformConv2dSpmd(x, out.map(lambda p: p[..., :n]), out.map(lambda p: torch.sigmoid(p[..., n:])),
+                                    self.weight, self.bias, self.deformableGroups, cache=self._tapsCache)
         return deformConv2d(x, out[..., :n], torch.sigmoid(out[..., n:]), self.weight, self.bias,
                             self.deformableGroups, cache=self._tapsCache)
+
+    def forward(self, x: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        """x, feat NHWC -> NHWC."""
+        return self.sample(x, self.offsetsOf(feat))

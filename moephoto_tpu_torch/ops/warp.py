@@ -235,11 +235,15 @@ def warpSpmd(img: sharded.RowShards, flow: sharded.RowShards, padding_mode: str 
 warpSpmd.launches = 0
 
 
-def backWarpSpmd(img: sharded.RowShards, flow: sharded.RowShards, padding_mode: str = "border") -> sharded.RowShards:
+def backWarpSpmd(img: sharded.RowShards, flow: sharded.RowShards, padding_mode: str = "border",
+                 reach: Optional[int] = None) -> sharded.RowShards:
     """``backWarp`` row-sharded (the port of ``backWarpBoundedSpmd``,
     ``moephoto_tpu/ops/warp.py:227``): the normalisation fold on global row
-    coordinates shard by shard, then :func:`warpSpmd`."""
+    coordinates shard by shard, then :func:`warpSpmd`.  A caller that warps
+    by several flows may pass ``reach``, a :func:`rowReach` of the flows as
+    given (unfolded), read once for all of them: the fold moves a sample
+    by less than one row, so the halo takes one row more."""
     _checkShards(img, flow, "backWarpSpmd")
     folded = sharded.RowShards([backWarpFlow(p, (a, flow.rows)) for p, a in zip(flow.parts, flow.bounds)],
                                flow.bounds, 1)
-    return warpSpmd(img, folded, padding_mode)
+    return warpSpmd(img, folded, padding_mode, None if reach is None else reach + 1)

@@ -18,11 +18,14 @@ are multiples of the stage's alignment and may be uneven.  Where a shard
 is shorter than a segment's halo, the segment runs gathered on the first
 shard's device and is split again (the counterpart of JAX replicating
 rows that do not divide); :data:`stats` counts every such gather, every
-host read and the bytes moved between shards.
+host read and the bytes moved between shards.  Under
+:func:`checkingSegments` every segment that runs sharded runs whole as
+well, and the segments whose outputs differ are counted.
 """
 
 from __future__ import annotations
 
+import contextlib
 from fractions import Fraction
 from typing import Callable, List, Optional, Sequence
 
@@ -31,13 +34,41 @@ import torch
 # counters of the sharded paths: "gathers" (segments run gathered),
 # "hostReads" (device -> host reads that size a halo), "haloBytes" (bytes
 # copied from one shard's part into another shard's window), "tileCalls"
-# (model calls of the tiled engine, per mesh slot)
+# (model calls of the tiled engine, per mesh slot), "segments" (under
+# :func:`checkingSegments`: per segment, its sharded calls and the calls
+# whose output differs from the whole run's)
 stats: dict = {}
+_checking = [False]
 
 
 def resetStats() -> None:
     stats.clear()
-    stats.update(gathers=0, hostReads=0, haloBytes=0, tileCalls={})
+    stats.update(gathers=0, hostReads=0, haloBytes=0, tileCalls={}, segments={})
+
+
+@contextlib.contextmanager
+def checkingSegments():
+    """While entered, every segment :func:`rowSegment` runs sharded runs a
+    second time on the gathered input, and ``stats["segments"]`` maps each
+    segment (its function's name, input shape, halo and scale) to [calls,
+    calls whose sharded output differs from the whole one in any bit, a NaN
+    matching a NaN].  In bf16 a conv can round apart on a shard's window,
+    where cuDNN picks another algorithm by the shape; this finds the
+    segments that do.  The outputs stay the sharded ones."""
+    _checking[0] = True
+    try:
+        yield
+    finally:
+        _checking[0] = False
+
+
+def _checkSegment(fn: Callable, x: "RowShards", out: "RowShards", halo: int, scale) -> None:
+    whole = fn(x.gather())
+    got = out.gather(whole.device)
+    differ = bool(((got != whole) & ~(got.isnan() & whole.isnan())).any())
+    calls = stats["segments"].setdefault(f"{fn.__qualname__} in {list(x.shape)} halo {halo} scale {scale}", [0, 0])
+    calls[0] += 1
+    calls[1] += differ
 
 
 resetStats()
@@ -185,7 +216,32 @@ def rowSegment(fn: Callable, x: RowShards, halo: int, scale=1, gather: bool = Fa
         if top.denominator != 1:
             raise ValueError(f"a halo of {a - lo} rows at scale {scale} is not whole rows")
         outs.append(y.narrow(x.axis, int(top), outBounds[j + 1] - outBounds[j]))
-    return RowShards(outs, outBounds, x.axis)
+    out = RowShards(outs, outBounds, x.axis)
+    if _checking[0]:
+        _checkSegment(fn, x, out, halo, scale)
+    return out
+
+
+def reflectIndex(n: int, rows: int) -> torch.Tensor:
+    """Source rows of ``rows`` rows reflect-padded from ``n`` at the end, as
+    ``numpy.pad``'s ``reflect`` (the edge row not repeated, the reflection
+    repeated where the pad outgrows the rows)."""
+    period = max(1, 2 * (n - 1))
+    j = torch.arange(rows) % period
+    return torch.where(j >= n, period - j, j)
+
+
+def padRows(x: RowShards, rows: int) -> RowShards:
+    """``x`` reflect-padded at its global bottom to ``rows`` rows
+    (:func:`reflectIndex`), the new rows on the last shard, taken from as
+    many shards as they reach back into."""
+    if rows <= x.rows:
+        return x
+    src = reflectIndex(x.rows, rows)[x.rows :]
+    j, lo = x.n - 1, int(src.min())
+    win = x.window(j, lo, int(src.max()) + 1)
+    pad = win.index_select(x.axis, (src - lo).to(win.device))
+    return RowShards(x.parts[:j] + [torch.cat([x.parts[j], pad], x.axis)], x.bounds[:-1] + (rows,), x.axis)
 
 
 def haloExchange(x: RowShards, halo: int, mode: str = "reflect") -> List[torch.Tensor]:

@@ -1,10 +1,10 @@
 """Step-JSON pipeline compiler.
 
 A JSON list of ``{'op': ...}`` dicts compiles to a composed function plus
-a progress-Node list, as in the JAX package.  Ported ops: ``file``,
-``buffer``, ``SR``, ``resize``, ``DN``, ``dehaze``, ``slomo``, ``VSR`` and
-``output``; ``demob`` raises ``NotImplementedError`` (ESTRNN, ROADMAP A11),
-as do the models the registry has not ported (A7).
+a progress-Node list, as in the JAX package.  Every op of the JAX package
+is ported: ``file``, ``buffer``, ``SR``, ``resize``, ``DN``, ``dehaze``,
+``slomo``, ``VSR``, ``demob`` and ``output``; the models the registry has
+not ported raise ``NotImplementedError`` (ROADMAP A7).
 
 In-pipeline image representation: torch float32 HWC in [0, 1] on the
 compute device between steps; the ``output`` step copies to the host.
@@ -26,7 +26,6 @@ from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
-NOT_PORTED = {"demob": "ROADMAP A11"}  # op -> the item it waits for
 videoOps = {"slomo", "VSR", "demob"}
 apply_ = lambda v, f: f(v)
 identity = lambda x, *_, **__: x
@@ -253,7 +252,12 @@ def procVideo(op):
             from moephoto_tpu_torch.models.ifrnet import doSlomo
 
             return fs + [doSlomo], ns + [node], out
-        raise NotImplementedError(f"step op {op!r} is not ported yet")
+        if op == "demob":
+            ns.append(newNode(opt, dict(op="ESTRNN", learn=0), out["load"]))
+            from moephoto_tpu_torch.models.estrnn import doESTRNN
+
+            return fs + [doESTRNN], ns, out
+        raise KeyError(op)
 
     return f
 
@@ -268,7 +272,9 @@ def _getOptVideo(op):
             from moephoto_tpu_torch.models import iconvsr
 
             return iconvsr.getOpt(opt)
-        raise NotImplementedError(f"step op {op!r} is not ported yet")
+        from moephoto_tpu_torch.models import estrnn
+
+        return estrnn.getOpt(opt)
 
     return f
 
@@ -297,6 +303,7 @@ procs: Dict[str, Callable] = dict(
     output=procOutput,
     slomo=procVideo("slomo"),
     VSR=procVideo("VSR"),
+    demob=procVideo("demob"),
 )
 
 stepOpts = dict(
@@ -311,14 +318,12 @@ stepOpts = dict(
         "getOpt": _getOptVideo("slomo"),
     },
     VSR={"getOpt": _getOptVideo("VSR")},
+    demob={"getOpt": _getOptVideo("demob")},
 )
 
 
 def genProcess(steps: List[dict], root: bool = True, outType: Optional[dict] = None):
     """Compile a step list into (process, nodes)."""
-    for opt in steps:
-        if opt["op"] in NOT_PORTED:
-            raise NotImplementedError(f"step op {opt['op']!r} is not ported yet ({NOT_PORTED[opt['op']]})")
     funcs: List[Callable] = []
     nodes: List[Node] = []
     last = identity

@@ -1,10 +1,11 @@
 """Seeded random weights in torch layout.
 
 The real checkpoints are not part of the repository, so parity runs and
-the GPU smoke test use random weights made from a seed.  The lite draws
-follow the JAX package's random lite parameters
-(``__graft_entry__._lite2Params``) in the same order, so the same seed
-gives the same weights in both packages.  The sun, AOD, AiLUT, IFRNet,
+the GPU smoke test use random weights made from a seed.  The lite and
+ESTRNN draws follow the JAX package's random parameters
+(``__graft_entry__._lite2Params``, ESTRNN's ``synthParams``) in the same
+order, so the same seed gives the same weights in both packages.  The
+sun, AOD, AiLUT, IFRNet,
 IconVSR, MyNet, NetDN and SEDN draws are this module's own; the tests
 hand one dict to both packages.
 
@@ -285,3 +286,55 @@ def synthIconVSRParams(seed: int = 0, numBlocks: int = 30) -> Dict[str, Dict[str
                 p[k] = (0.01 * rng.randn(*v.shape)).astype(np.float32)
         out[name] = _torchDict(p)
     return out
+
+
+def synthESTRNNParams(seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A random ESTRNN checkpoint as the reference stores it: ``{"cell",
+    "fusion", "recons"}``, each a state dict in torch layout (the
+    reconstructor's two ConvTranspose2d weights (in, out, k, k)).  The draws
+    are those of the JAX package's ESTRNN ``synthParams`` in the same order
+    (weights at half the 1/sqrt(fan-in) scale, biases at 0.01), so the same
+    seed gives the same weights in both packages."""
+    rng = np.random.RandomState(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def t(name, *shape):
+        fan = float(np.prod(shape[1:])) if len(shape) > 1 else 1.0
+        sd[name + ".weight"] = (rng.randn(*shape) / np.sqrt(fan) * 0.5).astype(np.float32)
+        sd[name + ".bias"] = rng.randn(shape[0]).astype(np.float32) * 0.01
+
+    def rdb(prefix, g, c0):
+        for i in range(3):
+            t(f"{prefix}.{i}.conv", g, c0 + i * g, 3, 3)
+        return c0 + 3 * g
+
+    def tT(name, cin, cout, k):
+        sd[name + ".weight"] = (rng.randn(cin, cout, k, k) / np.sqrt(k * k * cin) * 0.5).astype(np.float32)
+        sd[name + ".bias"] = rng.randn(cout).astype(np.float32) * 0.01
+
+    t("cell.F_B0", 16, 3, 5, 5)
+    t("cell.F_B1.0.3", 16, rdb("cell.F_B1.0", 16, 16), 1, 1)
+    t("cell.F_B1.1", 32, 16, 5, 5)
+    t("cell.F_B2.0.3", 32, rdb("cell.F_B2.0", 24, 32), 1, 1)
+    t("cell.F_B2.1", 64, 32, 5, 5)
+    for b in range(15):
+        t(f"cell.F_R.RDBs.{b}.3", 80, rdb(f"cell.F_R.RDBs.{b}", 32, 80), 1, 1)
+    t("cell.F_R.conv1x1", 80, 15 * 80, 1, 1)
+    t("cell.F_R.conv3x3", 80, 80, 3, 3)
+    t("cell.F_h.0", 16, 80, 3, 3)
+    t("cell.F_h.1.3", 16, rdb("cell.F_h.1", 16, 16), 1, 1)
+    t("cell.F_h.2", 16, 16, 3, 3)
+    t("fusion.F_f.0", 320, 160)
+    t("fusion.F_f.2", 160, 320)
+    t("fusion.F_p.0", 320, 160, 1, 1)
+    t("fusion.F_p.1", 160, 320, 1, 1)
+    t("fusion.condense", 80, 160, 1, 1)
+    t("fusion.fusion", 400, 400, 1, 1)
+    tT("recons.0", 400, 32, 3)
+    tT("recons.1", 32, 16, 3)
+    t("recons.2", 3, 16, 5, 5)
+    out: Dict[str, Dict[str, np.ndarray]] = {"cell": {}, "fusion": {}, "recons": {}}
+    for k, v in sd.items():
+        mod, key = k.split(".", 1)
+        out[mod][key] = v
+    return {mod: _torchDict(p) for mod, p in out.items()}

@@ -54,7 +54,7 @@ padOp = {"VSR", "demob"}
 
 def _temporalWindow(op: str):
     """(lookback, lookahead) reference frames per temporal op
-    (video.py:37-38).  Ported: ``slomo``, ``VSR``."""
+    (video.py:37-38): ``slomo``, ``VSR`` and ``demob``."""
     if op == "slomo":
         from moephoto_tpu_torch.models.ifrnet import RefTime
 
@@ -63,7 +63,9 @@ def _temporalWindow(op: str):
         from moephoto_tpu_torch.models.iconvsr import RefTime
 
         return RefTime >> 1, (RefTime - 1) >> 1
-    raise NotImplementedError(f"temporal op {op!r} is not ported yet")
+    from moephoto_tpu_torch.models.estrnn import futureFrames, pastFrames
+
+    return pastFrames, futureFrames
 
 
 lookbackOf = lambda op: _temporalWindow(op)[0]

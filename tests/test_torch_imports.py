@@ -39,7 +39,8 @@ def test_no_jax_import(path):
 
 def test_port_entry_modules_load_without_jax():
     code = ("import sys, moephoto_tpu_torch.cli, moephoto_tpu_torch.pipeline.steps, "
-            "moephoto_tpu_torch.video.engine, moephoto_tpu_torch.models.ifrnet, moephoto_tpu_torch.models.iconvsr; "
+            "moephoto_tpu_torch.video.engine, moephoto_tpu_torch.models.ifrnet, moephoto_tpu_torch.models.iconvsr, "
+            "moephoto_tpu_torch.models.estrnn; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'moephoto_tpu' or m.startswith('moephoto_tpu.')]; "
             "assert not bad, bad")

@@ -609,9 +609,9 @@ def test_mesh_across_cards_matches_one_card(cards, monkeypatch):
     halos are peer copies.  K2a, K3's tier and K6 are bit-equal to the
     single-device kernels on ``cuda:0``; lite x2 through ``ModelExec`` under
     ``meshShape`` [n] gives the single-device output with every card taking
-    tile calls; IFRNet-S's row-sharded stages (fp32, TF32 off, every segment
-    whose shards hold its reach sharded) match the single-device stages
-    within the CPU tests' tolerances."""
+    tile calls; IFRNet-S's, IconVSR's and ESTRNN's row-sharded stages (fp32,
+    TF32 off, every segment whose shards hold its reach sharded) match the
+    single-device stages within the CPU tests' tolerances."""
     from moephoto_tpu_torch.engine.executor import ModelExec
     from moephoto_tpu_torch.engine.tiling import TileSpec
     from moephoto_tpu_torch.models import ifrnet as P
@@ -678,3 +678,47 @@ def test_mesh_across_cards_matches_one_card(cards, monkeypatch):
     for name, a, b in zip(NAMES, multi, single):
         assert a.device == home, name
         torch.testing.assert_close(a, b, atol=3e-5 if name == "preds" else 2e-5, rtol=1e-5, msg=name)
+    # IconVSR's and ESTRNN's row-sharded stages (fp32, TF32 off, IconVSR's
+    # GATHER_FROM off) against the one card, within the CPU tests' tolerance
+    from fractions import Fraction
+
+    from moephoto_tpu_torch.models import estrnn as E
+    from moephoto_tpu_torch.models import iconvsr as V
+    from moephoto_tpu_torch.synth import synthESTRNNParams, synthIconVSRParams
+
+    monkeypatch.setattr(V, "GATHER_FROM", Fraction(0))
+    vsr = V.IconVSR(2)
+    vsr.load_state_dict({f"{m}.{k}": v for m, d in synthIconVSRParams(0, 2).items() for k, v in d.items()})
+    est = E.ESTRNN()
+    est.load_state_dict({f"{m}.{k}": v for m, d in synthESTRNNParams(0).items() for k, v in d.items()})
+    vsr.eval().to(home)
+    est.eval().to(home)
+    rng = np.random.RandomState(9)
+    r = lambda *s: torch.from_numpy(rng.rand(*s).astype(np.float32)).to(home)  # noqa: E731
+    inp, pair, clip, kf = r(3, 256, 64, 3), r(2, 2, 256, 64, 3), r(1, 7, 256, 64, 3), r(1, 256, 64, 64) * 0.1
+    flow, frames, hidden = (r(3, 256, 64, 2) * 2 - 1) * 3, r(6, 384, 32, 3), r(1, 96, 8, 16) * 0.1
+    whole = lambda x: x.gather() if isinstance(x, S.RowShards) else x  # noqa: E731
+
+    def videoStages():
+        with torch.inference_mode():
+            bwd = vsr.backwardScan(inp, flow, [False, True, True], [kf, None, None])
+            fwd, fp = vsr.forwardScan(kf, inp, [V.rowsOf(bwd, t) for t in range(3)], flow, [False, True, True],
+                                      [None, kf, None])
+            hs, w, h2 = est.cellScanPool(frames, hidden)
+            hsW = whole(hs)
+            out = est.gsaRecons(torch.stack([hsW[0:5], hsW[1:6]]), torch.stack([w[0:5], w[1:6]]))
+            return {k: whole(v) for k, v in dict(spynet=vsr.spynet(pair), edvr=vsr.edvr(clip), backward=bwd,
+                                                 forward=fwd, carry=fp, upsample=vsr.upsampleChunk(inp, fwd),
+                                                 hs=hsW, w=w, hidden=h2, deblurred=out).items()}
+
+    single = videoStages()
+    M.installMesh(M.makeMesh([n], devices=cards))
+    S.resetStats()
+    try:
+        multi = videoStages()
+        assert S.stats["haloBytes"] > 0
+    finally:
+        M.installMesh(None)
+    for name in single:
+        assert multi[name].device == home, name
+        torch.testing.assert_close(multi[name], single[name], atol=2e-5, rtol=1e-5, msg=name)

@@ -18,25 +18,29 @@ from moephoto_tpu.utils import imageio as jaxImageio
 from moephoto_tpu.video import engine as jaxEngine
 from moephoto_tpu_torch import cli
 from moephoto_tpu_torch.config import config
+from moephoto_tpu_torch.models.estrnn import modelPaths as estrnnPaths
 from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
-from moephoto_tpu_torch.synth import synthIconVSRParams, synthIFRNetParams
+from moephoto_tpu_torch.synth import synthESTRNNParams, synthIconVSRParams, synthIFRNetParams
 from moephoto_tpu_torch.utils import imageio
 from moephoto_tpu_torch.video import engine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLOMO = {"op": "slomo", "model": "IFRNet S", "sf": 2}
 VSR = {"op": "VSR"}
+DEMOB = {"op": "demob", "model": "1ms8ms"}
 
 
 @pytest.fixture
 def video(tmp_path, monkeypatch):
-    """Synthetic IFRNet-S and IconVSR (2-block trunks) checkpoints in a
-    modelDir both packages read, an executable fake ffmpeg, the port on the
+    """Synthetic IFRNet-S, IconVSR (2-block trunks) and ESTRNN checkpoints in
+    a modelDir both packages read, an executable fake ffmpeg, the port on the
     CPU; configs restored after."""
     (tmp_path / "IFRNet").mkdir()
     torch.save(synthIFRNetParams("S", 3), str(tmp_path / "IFRNet" / "IFRNet_S_GoPro.pth"))
     (tmp_path / "vsr").mkdir()
     torch.save(synthIconVSRParams(3, 2), str(tmp_path / vsrPath[len("model/"):]))
+    (tmp_path / "ESTRNN").mkdir()
+    torch.save(synthESTRNNParams(3), str(tmp_path / estrnnPaths["1ms8ms"][len("model/"):]))
     ff = tmp_path / "ffmpeg"
     ff.write_text(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.join(ROOT, "tools", "fakeffmpeg.py")}" "$@"\n')
     ff.chmod(0o755)
@@ -105,12 +109,14 @@ def test_cli_video_slomo_through_fake_ffmpeg(video, monkeypatch):
 
 
 def test_unported_temporal_ops_raise(video):
+    """Every temporal op is ported: ``demob``, which raised until ESTRNN was
+    ported, builds, and its window (2 frames back, 2 ahead) is JAX's."""
     from moephoto_tpu_torch.pipeline.steps import genProcess
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        genProcess([{"op": "buffer", "bitDepth": 16}, {"op": "demob"}, {"op": "output"}])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.lookbackOf("demob")
+    process, nodes = genProcess([{"op": "buffer", "bitDepth": 16}, dict(DEMOB), {"op": "output"}])
+    assert callable(process) and nodes
+    assert engine.lookbackOf("demob") == engine.lookaheadOf("demob") == 2
+    assert engine._temporalWindow("demob") == jaxEngine._temporalWindow("demob") == (2, 2)
 
 
 def test_vsr_window_matches_jax():
