@@ -98,7 +98,22 @@ Phases, each printing one JSON line:
               device-resident 1080p image (Mpx/s by CUDA events, device
               ms, idle share and top kernels from one profiled call), and
               K5 alone at 1080p and at the gate's 32x64, timed as above
- 11. mesh     the multi-device serving layer on the one card, row shards of
+ 11. zoo      runs BASELINE config 3 through the CLI's image path (DN
+              MPRNet_denoising -> DN NAFNet_32, bf16, full width) on a seeded
+              1920x1080 PNG, checks the output and that no hand-written kernel
+              launched, and holds a 128x128 crop of each model in fp32 on the
+              card against the CPU; then every other model of the zoo once
+              through its registry entry's ModelExec on the card in bf16
+              (NAFNet_64, the three NAFNet deblur entries, MPRNet deblurring
+              and deraining and moire_obj on 1280x720; gan2, gan4, gana4 and
+              VSR_Cleaning on 640x360; moire_screen_gan on 1920x1080), each
+              output finite and of its size, with its fp32 crop against the
+              CPU; then times NAFNet-32, MPRNet deblurring, the config-3
+              chain, moire_obj and moire_screen_gan at 1080p and gan4 at
+              640x360 on a device-resident image (input Mpx/s by CUDA events,
+              multiply-accumulates an image counted on the meta device, one
+              profiled call: device ms, idle share, top kernels)
+ 12. mesh     the multi-device serving layer on the one card, row shards of
               cuda:0 x 2 and x 4 (installed meshes): K2a (warpSpmd,
               backWarpSpmd), K3's tier (deformConv2dSpmd) and K6
               (ailutTransformSpmd) held bit-equal to the single-device
@@ -1789,6 +1804,263 @@ def timingDn(seed, gpu):
     return shapes
 
 
+# --- the rest of the image model zoo: convs, norms and attention, no hand-written kernel --
+
+CONFIG3 = [{"op": "DN", "model": "MPRNet_denoising"}, {"op": "DN", "model": "NAFNet_32"}]
+# fp32 crops on the card (TF32 off) against the CPU, times max(1, |cpu|): both devices run the same fp32
+# graph and differ only in summation order (~1e-6 measured on the earlier paths); MPRNet's sigmoid gates,
+# NAFNet's fp32 LayerNorm and the moire models' fp32 softmax keep their inputs' rounding, so DN_CROP_TOL holds
+ZOO_TOL = DN_CROP_TOL
+MOIRE_C = 64  # moire_obj's and moire_screen_gan's feature width: no source fixes it (models/demoire.py)
+
+
+def zooModels():
+    """Registry key -> (step, seeded full-width draw, input (w, h) of its run, side of its CPU crop).
+    Config 3's two models first, then every other model the zoo phase runs once."""
+    from moephoto_tpu_torch import synth
+
+    nafGoPro = lambda w: lambda s: synth.synthNAFNetParams(w, 1, (1, 1, 1, 28), (1, 1, 1, 1), seed=s)
+    dehaze = lambda m: {"op": "dehaze", "model": m}
+    return {
+        "MPRNet_denoising": ({"op": "DN", "model": "MPRNet_denoising"}, lambda s: synth.synthMPRNetParams(seed=s),
+                             (W, H), 128),
+        "NAFNet_32": ({"op": "DN", "model": "NAFNet_32"}, lambda s: synth.synthNAFNetParams(seed=s), (W, H), 128),
+        "NAFNet_64": ({"op": "DN", "model": "NAFNet_64"}, lambda s: synth.synthNAFNetParams(64, seed=s),
+                      (PRESET_W, PRESET_H), 128),
+        "NAFNet_deblur_32": (dehaze("NAFNet_deblur_32"), nafGoPro(32), (PRESET_W, PRESET_H), 128),
+        "NAFNet_deblur_64": (dehaze("NAFNet_deblur_64"), nafGoPro(64), (PRESET_W, PRESET_H), 128),
+        "NAFNet_deblur_JPEG_64": (dehaze("NAFNet_deblur_JPEG_64"), nafGoPro(64), (PRESET_W, PRESET_H), 128),
+        "MPRNet_deblurring": (dehaze("MPRNet_deblurring"), lambda s: synth.synthMPRNetParams(96, 48, 32, 8, seed=s),
+                              (PRESET_W, PRESET_H), 128),
+        "MPRNet_deraining": (dehaze("MPRNet_deraining"), lambda s: synth.synthMPRNetParams(40, 20, 16, 8, seed=s),
+                             (PRESET_W, PRESET_H), 128),
+        "gan2": ({"op": "SR", "model": "gan", "scale": 2}, lambda s: synth.synthRRDBParams(2, 23, seed=s), (640, 360), 64),
+        "gan4": ({"op": "SR", "model": "gan", "scale": 4}, lambda s: synth.synthRRDBParams(4, 23, seed=s), (640, 360), 64),
+        "gana4": ({"op": "SR", "model": "gana", "scale": 4}, lambda s: synth.synthRRDBParams(4, 6, seed=s),
+                  (640, 360), 64),
+        "VSR_Cleaning": ({"op": "DN", "model": "VSR_Cleaning"}, lambda s: synth.synthImageCleaningParams(seed=s),
+                         (640, 360), 128),
+        "moire_obj": (dehaze("moire_obj"), lambda s: synth.synthMoireObjParams(MOIRE_C, seed=s), (PRESET_W, PRESET_H),
+                      128),
+        "moire_screen_gan": (dehaze("moire_screen_gan"), lambda s: synth.synthMoireScreenGanParams(MOIRE_C, seed=s),
+                             (W, H), 512),
+    }
+
+
+def zooEntry(step):
+    """The registry entry of a zoo step."""
+    from moephoto_tpu_torch.pipeline import registry
+
+    if step["op"] == "SR":
+        return registry.SR_REGISTRY[step["model"] + str(step["scale"])]
+    return (registry.DN_REGISTRY if step["op"] == "DN" else registry.DEHAZE_REGISTRY)[step["model"]]
+
+
+def zooExec(step):
+    """The ModelExec a ``cli image`` step builds (once; the registry caches it)."""
+    from moephoto_tpu_torch.pipeline import registry
+
+    get = {"SR": registry.getSR, "DN": registry.getDN, "dehaze": registry.getDehaze}[step["op"]]
+    return get(dict(step))
+
+
+def seededImage(seed, w, h):
+    return np.random.RandomState(seed).randint(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def holdZooCrop(name, step, sd, img, side):
+    """The model's fp32 output on the top-left ``side`` x ``side`` crop of
+    ``img``, on the card (TF32 off) and on the CPU, same weights, through
+    ModelExec with the entry's tile spec; ZOO_TOL relative."""
+    from moephoto_tpu_torch.engine.executor import ModelExec
+    from moephoto_tpu_torch.pipeline import registry
+
+    entry = zooEntry(step)
+    x = torch.from_numpy(img[:side, :side].astype(np.float32) / 255.0)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        model = getattr(registry._lazyImport(entry["family"]), entry["fn"])()
+        model.load_state_dict(sd, strict=True)
+        outs.append(ModelExec(model.to(dev).eval(), entry["spec"], dtype=torch.float32, device=dev)(x).cpu())
+    err = (outs[0] - outs[1]).abs()
+    if not (bool((err <= ZOO_TOL * outs[1].abs().clamp_min(1.0)).all()) and torch.isfinite(outs[0]).all()):
+        raise AssertionError(f"{name} crop on the card differs from the CPU by {float(err.max())}")
+    return {"shape": list(outs[0].shape), "max_abs_err": float(err.max()), "cpu_std": float(outs[1].std())}
+
+
+def runConfig3(seed, work, draws):
+    """BASELINE config 3 through ``cli image`` on the card in bf16: DN
+    MPRNet_denoising -> DN NAFNet_32 on a seeded 1920x1080 PNG; the output
+    and no kernel launch checked; each model's fp32 crop against the CPU."""
+    from PIL import Image
+
+    from moephoto_tpu_torch import cli
+
+    src, dst = os.path.join(work, "config3_in.png"), os.path.join(work, "config3_out.png")
+    img = seededImage(seed, W, H)
+    Image.fromarray(img).save(src)
+    resetCounts()
+    t0 = time.perf_counter()
+    cli.runImage(src, dst, [dict(s) for s in CONFIG3])
+    seconds = time.perf_counter() - t0
+    launches = readCounts()
+    with Image.open(dst) as out:
+        got, mode = out.size, out.mode
+        arr = np.asarray(out)
+    if got != (W, H) or mode != "RGB" or not arr.std() > 0:
+        raise AssertionError(f"config3: output {got} {mode} std {arr.std()}, want {(W, H)} RGB")
+    if sum(launches.values()):
+        raise AssertionError(f"config3 launched {launches}: no hand-written kernel is on its path")
+    crops = {}
+    for name in ("MPRNet_denoising", "NAFNet_32"):
+        step, _, _, side = zooModels()[name]
+        crops[name] = holdZooCrop(name, step, draws[name], img, side)
+    emit(phase="config3", steps=CONFIG3, input=[H, W, 3], output=list(arr.shape), seconds=seconds, launches=launches,
+         kernels="none on this path: cuDNN convs, torch norms and elementwise passes",
+         output_mean=float(arr.mean()), output_std=float(arr.std()), crop_tol=f"{ZOO_TOL}*max(1,|cpu|)", crops=crops)
+
+
+def writeDraw(work, step, draw, seed):
+    """A model's seeded full-width draw, saved where the registry looks for its checkpoint."""
+    sd = draw(seed)
+    path = os.path.join(work, zooEntry(step)["path"][len("model/"):])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+    return sd
+
+
+def runZoo(seed, work):
+    """Every other model of the zoo once through its registry entry's
+    ModelExec on the card in bf16 (as ``cli image`` calls it): the output
+    finite and of the expected size, no kernel launch; each model's fp32
+    crop against the CPU."""
+    from moephoto_tpu_torch.config import config
+
+    report = {}
+    for i, (name, (step, draw, (w, h), side)) in enumerate(zooModels().items()):
+        if name in ("MPRNet_denoising", "NAFNet_32"):
+            continue
+        sd = writeDraw(work, step, draw, seed + i)
+        img = seededImage(seed + 20 + i, w, h)
+        entry, ex = zooEntry(step), zooExec(step)
+        x = torch.from_numpy(img).cuda().float() / 255.0
+        resetCounts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = ex(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = readCounts()
+        sc = int(entry["spec"].scale)
+        if tuple(y.shape) != (h * sc, w * sc, 3) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: output {tuple(y.shape)} finite {bool(torch.isfinite(y).all())}, "
+                                 f"want {(h * sc, w * sc, 3)}")
+        if sum(launches.values()):
+            raise AssertionError(f"{name} launched {launches}: no hand-written kernel is on its path")
+        report[name] = {"step": step, "input": [h, w, 3], "output": list(y.shape), "first_call_seconds": seconds,
+                        "dtype": str(config.dtype()), "output_mean": float(y.mean()), "output_std": float(y.std()),
+                        "crop": holdZooCrop(name, step, sd, img, side)}
+        del sd, y
+    emit(phase="zoo", launches="none on these paths", crop_tol=f"{ZOO_TOL}*max(1,|cpu|)", models=report)
+
+
+def tileMacs(ctor, tile):
+    """Multiply-accumulates of one (1, tile, tile, 3) tile through the model
+    ``ctor()`` builds, by layer group: every conv, ConvTranspose and linear
+    (layerMacs' hooks) and both products of each attention
+    (``demoire.attend``, from its shapes).  Built and run on the meta
+    device, so nothing is computed or allocated."""
+    from moephoto_tpu_torch.models import demoire
+
+    plain, counted = demoire.attend, {"attention": 0}
+
+    def attend(q, k, v):
+        counted["attention"] += q.shape[0] * q.shape[1] * k.shape[1] * (q.shape[2] + v.shape[2])
+        return plain(q, k, v)
+
+    with torch.device("meta"):
+        model = ctor().eval()
+        x = torch.empty(1, tile, tile, 3)
+    demoire.attend = attend
+    try:
+        byLayer = layerMacs(model, lambda: model(x))
+    finally:
+        demoire.attend = plain
+    return {**byLayer, **counted}
+
+
+def imageMacs(entry, w, h):
+    """Multiply-accumulates of one w x h image through a registry entry's
+    tiled ModelExec: a tile's, times the tiles its chunks run (the last
+    chunk filled up to the batch, as the engine runs it)."""
+    from moephoto_tpu_torch.engine.tiling import planAxis
+    from moephoto_tpu_torch.pipeline import registry
+
+    spec = entry["spec"]
+    tiles = len(planAxis(h, spec.tile, spec.pad)) * len(planAxis(w, spec.tile, spec.pad))
+    run = -(-tiles // spec.batch) * spec.batch
+    perTile = tileMacs(getattr(registry._lazyImport(entry["family"]), entry["fn"]), spec.tile)
+    return run * sum(perTile.values()), {k: run * v for k, v in perTile.items()}, tiles, run
+
+
+ZOO_TIMED = (  # name, registry keys in turn, input (w, h)
+    ("NAFNet_32_1080p", ("NAFNet_32",), (W, H)),
+    ("MPRNet_deblurring_1080p", ("MPRNet_deblurring",), (W, H)),
+    ("config3_chain_1080p", ("MPRNet_denoising", "NAFNet_32"), (W, H)),
+    ("gan4_640x360", ("gan4",), (640, 360)),
+    ("moire_obj_1080p", ("moire_obj",), (W, H)),
+    ("moire_screen_gan_1080p", ("moire_screen_gan",), (W, H)),
+)
+
+
+def timingZoo(seed, gpu):
+    """Input Mpx/s of NAFNet-32, MPRNet deblur, the config-3 chain, gan4 and
+    both moire models on a device-resident image (bf16, mean of ITERS by
+    CUDA events after WARMUP), their multiply-accumulates an image
+    (imageMacs), and one profiled call: device ms, idle share, the achieved
+    rate, top kernels."""
+    models = zooModels()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    report = {}
+    for name, keys, (w, h) in ZOO_TIMED:
+        t0 = time.perf_counter()
+        execs = [(zooEntry(models[k][0]), zooExec(models[k][0])) for k in keys]
+        x = torch.rand((h, w, 3), generator=g, device="cuda")
+
+        def fn():
+            y = x
+            for _, ex in execs:
+                y = ex(y)
+            return y
+
+        y = fn()
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: output not finite")
+        for _ in range(WARMUP):
+            fn()
+        ms = cudaTimeMs(fn, ITERS)
+        timedS = time.perf_counter() - t0
+        wallMs, rows = profileOnce(fn)
+        deviceMs = sum(t for _, t in rows)
+        profiledS = time.perf_counter() - t0 - timedS
+        macs, byLayer, tiles = 0, {}, []
+        for entry, _ in execs:
+            m, layers, n, run = imageMacs(entry, w, h)
+            macs += m
+            tiles.append([n, run])
+            for k, v in layers.items():
+                byLayer[k] = byLayer.get(k, 0) + v
+        top = sorted(byLayer.items(), key=lambda kv: -kv[1])[:6]
+        report[name] = {"input": [h, w, 3], "mpx_per_s": (h * w / 1e6) / (ms / 1e3), "ms_per_image": ms,
+                        "iters": ITERS, "profiled_wall_ms": wallMs, "profiled_device_ms": deviceMs,
+                        "device_idle_share": (1 - deviceMs / wallMs) if wallMs else None,
+                        "gmac_per_image": macs / 1e9, "tflops_achieved": 2 * macs / (deviceMs * 1e-3) / 1e12,
+                        "tiles_planned_and_run": tiles, "mac_share": {k: v / macs for k, v in top},
+                        "top_kernels": [{"name": k[:80], "ms": t} for k, t in rows[:8]],
+                        "seconds": {"timed": timedS, "profiled": profiledS}}
+    emit(phase="zoo_timing", gpu=gpu, dtype="bfloat16", warmup=WARMUP, paths=report)
+
+
 # --- the multi-device serving layer on the one card ---------------------------
 
 MESH_SIZES = (2, 4)  # row shards of cuda:0 in the mesh phase
@@ -2518,6 +2790,14 @@ def main(argv=None) -> int:
         checkDnCrop(args.seed)
         ct = timingDn(args.seed, smi)
         mark("dn")
+        zoo = [(name, step, draw) for name, (step, draw, _, _) in zooModels().items()]
+        draws = {name: writeDraw(work, step, draw, args.seed + 30 + i) for i, (name, step, draw) in enumerate(zoo)
+                 if name in ("MPRNet_denoising", "NAFNet_32")}
+        runConfig3(args.seed + 11, work, draws)
+        del draws
+        runZoo(args.seed, work)
+        timingZoo(args.seed, smi)
+        mark("zoo")
 
         from PIL import Image
 

@@ -129,6 +129,51 @@ def resizeCubic(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def interpolateScale(x: torch.Tensor, scale: float, mode: str = "bilinear",
+                     align_corners: bool = False) -> torch.Tensor:
+    """Resize NHWC by ``scale`` to (int(H scale), int(W scale)), as the JAX
+    package's ``interpolateScale``: ``nearest`` through :func:`resizeNearest`
+    (half-pixel centres), ``bilinear`` through :func:`resizeBilinear`, never
+    antialiased (MPRNet's 0.5x downsample averages two pixels, not four)."""
+    h, w = int(x.shape[-3] * scale), int(x.shape[-2] * scale)
+    if mode == "nearest":
+        return resizeNearest(x, h, w)
+    return resizeBilinear(x, h, w, align_corners)
+
+
+def pixelUnshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Torch pixel_unshuffle on NHWC: output channel c r^2 + i r + j holds
+    input channel c at row offset i, column offset j."""
+    if r == 1:
+        return x
+    return F.pixel_unshuffle(x.permute(0, 3, 1, 2), r).permute(0, 2, 3, 1)
+
+
+def onNHWC(fn: Callable, x: torch.Tensor, *args) -> torch.Tensor:
+    """An NHWC function of this module applied to an NCHW tensor (views only)."""
+    return fn(x.permute(0, 2, 3, 1), *args).permute(0, 3, 1, 2)
+
+
+class LayerNorm2d(torch.nn.Module):
+    """LayerNorm over the channels of NCHW (reference ``LayerNorm2d``, JAX
+    ``layerNorm2d``): biased variance, eps 1e-5, normalised and scaled in
+    fp32 whatever the input's dtype, rounded once.  Keys ``weight``,
+    ``bias``."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.ones(c))
+        self.bias = torch.nn.Parameter(torch.zeros(c))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # one pass over the channels-last view; F.layer_norm keeps its sums
+        # and the affine step in fp32 for a bf16 input
+        y = F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],), self.weight.to(x.dtype), self.bias.to(x.dtype),
+                         self.eps)
+        return y.permute(0, 3, 1, 2)
+
+
 class ScaleLayer(torch.nn.Module):
     """Learned scalar multiplier (key ``scale``; reference ``ScaleLayer``)."""
 

@@ -11,14 +11,15 @@ from moephoto_tpu_torch.models.api import ScaleLayer, globalAvgPool, prelu
 
 class FRM(nn.Module):
     """Feature recalibration (SE) module: gap -> 1x1 conv -> relu ->
-    1x1 conv -> sigmoid -> channel scale.  Keys ``conv_du.0/2``."""
+    1x1 conv -> sigmoid -> channel scale.  Keys ``conv_du.0/2``; MPRNet's
+    channel attention (``CALayer``) is this module with ``bias=False``."""
 
-    def __init__(self, channels: int, hidden: int):
+    def __init__(self, channels: int, hidden: int, bias: bool = True):
         super().__init__()
         self.conv_du = nn.Sequential(
-            nn.Conv2d(channels, hidden, 1, bias=True),
+            nn.Conv2d(channels, hidden, 1, bias=bias),
             nn.ReLU(),
-            nn.Conv2d(hidden, channels, 1, bias=True),
+            nn.Conv2d(hidden, channels, 1, bias=bias),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
@@ -48,6 +49,37 @@ class ARSB(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self[0](x)
+
+
+class _CARBFBody(nn.Module):
+    def __init__(self, c: int, hidden: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c, c, 3, padding=1)
+        self.relu = nn.PReLU()
+        self.conv2 = nn.Conv2d(c, c, 3, padding=1)
+        self.ca = FRM(c, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ca(self.conv2(prelu(self.conv1(x), self.relu.weight)))
+
+
+class CARBF(nn.Sequential):
+    """One CARB half (JAX ``carbf``): conv 3x3 -> PReLU -> conv 3x3 -> FRM,
+    plus the input; the Residual wrapper registers the body as module
+    ``0``, so the keys are ``0.conv1/relu/conv2/ca``.  Runs on NCHW."""
+
+    def __init__(self, c: int, hidden: int):
+        super().__init__(_CARBFBody(c, hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self[0](x)
+
+
+class CARB(nn.Sequential):
+    """Two stacked CARBFs (JAX ``carb``), keys ``0.0.*`` and ``1.0.*``."""
+
+    def __init__(self, c: int, hidden: int):
+        super().__init__(CARBF(c, hidden), CARBF(c, hidden))
 
 
 class UpsampleBlock(nn.Sequential):

@@ -1,16 +1,11 @@
 """Model registry: step-JSON model names -> executable models.
 
-Same model keys and checkpoint file layout as the JAX package's
-registry; each entry resolves to a :class:`ModelExec` with a static
-:class:`TileSpec`.  Ported: of the SR registry MoeNet_lite2
-(``lite2/4/8``) and MyNet (``a2/a3/a4``, ``p2/p3/p4``); of the DN registry
-SEDN (``15/25/50``) and NetDN (``lite5/10/15``); of the dehaze registry AOD
-(``dehaze``), ``sun`` and the three AiLUT entries.  The keys in
-``SR_NOT_PORTED``, ``DN_NOT_PORTED`` and ``DEHAZE_NOT_PORTED`` raise
-``NotImplementedError`` naming the ROADMAP item they wait for (A7: RRDB,
-ImageCleaning, the moire models, NAFNet, MPRNet).  Temporal models
-(``models/ifrnet.py``, ``models/iconvsr.py``) load through
-:func:`modelPath` in their own ``getOpt``, as in the JAX package.
+Same model keys, checkpoint file layout and tile specs as the JAX
+package's registry, every key of its SR, DN and dehaze registries; each
+entry resolves to a :class:`ModelExec` with a static :class:`TileSpec`.
+Temporal models (``models/ifrnet.py``, ``models/iconvsr.py``,
+``models/estrnn.py``) load through :func:`modelPath` in their own
+``getOpt``, as in the JAX package.
 
 The Y-channel entries run unpacked (``channelSplit``, no plane packing).
 Packing exists in the JAX package to fill the TPU's 128-lane matrix unit
@@ -57,7 +52,7 @@ def modelPath(rel: str) -> str:
     return candidates[0]
 
 
-PORTED_FAMILIES = ("sr", "restore", "demoire", "ailut")  # modules of moephoto_tpu_torch.models
+PORTED_FAMILIES = ("sr", "restore", "nafnet", "mprnet", "demoire", "ailut")  # modules of moephoto_tpu_torch.models
 
 
 def _lazyImport(family: str):
@@ -84,6 +79,7 @@ def _normalize05(x):
 _SPEC_LITE = lambda sc: TileSpec(tile=256, pad=5, align=8, scale=sc, batch=10 if sc <= 4 else 2)
 
 _SPEC_Y_SR = lambda sc: TileSpec(tile=256, pad=9 if sc == 3 else 5, align=8, scale=sc, batch=8 if sc <= 2 else 4)
+_SPEC_GAN = lambda sc: TileSpec(tile=192, pad=8, align=4, scale=sc, batch=4)
 
 SR_REGISTRY = {
     "a2": _entry("sr", "net2x", "model/a2/model_new.pth", _SPEC_Y_SR(2), channelSplit=True),
@@ -92,11 +88,13 @@ SR_REGISTRY = {
     "p2": _entry("sr", "net2x", "model/p2/model_new.pth", _SPEC_Y_SR(2), channelSplit=True),
     "p3": _entry("sr", "net3x", "model/p3/model_new.pth", _SPEC_Y_SR(3), channelSplit=True),
     "p4": _entry("sr", "net4x", "model/p4/model_new.pth", _SPEC_Y_SR(4), channelSplit=True),
+    "gan2": _entry("restore", "rrdbNetX2", "model/gan/RealESRGAN_x2plus.pth", _SPEC_GAN(2)),
+    "gan4": _entry("restore", "rrdbNetX4", "model/gan/RealESRGAN_x4plus.pth", _SPEC_GAN(4)),
+    "gana4": _entry("restore", "rrdbNetX4Anime", "model/gan/RealESRGAN_x4plus_anime_6B.pth", _SPEC_GAN(4)),
     "lite2": _entry("sr", "moeNetLite2x2", "model/lite/model.pth", _SPEC_LITE(2), channelSplit=True),
     "lite4": _entry("sr", "moeNetLite2x4", "model/lite/model_4.pth", _SPEC_LITE(4), channelSplit=True),
     "lite8": _entry("sr", "moeNetLite2x8", "model/lite/model_8.pth", _SPEC_LITE(8), channelSplit=True),
 }
-SR_NOT_PORTED = {"gan2", "gan4", "gana4"}  # RRDB: ROADMAP A7
 
 # --- DN registry ----------------------------------------------------------
 _SPEC_DN = TileSpec(256, 7, 8, 1.0, 8)
@@ -107,8 +105,15 @@ DN_REGISTRY = {
     "lite5": _entry("sr", "netDN", "model/dn_lite5/model_new.pth", _SPEC_DN, channelSplit=True),
     "lite10": _entry("sr", "netDN", "model/dn_lite10/model_new.pth", _SPEC_DN, channelSplit=True),
     "lite15": _entry("sr", "netDN", "model/dn_lite15/model_new.pth", _SPEC_DN, channelSplit=True),
+    "MPRNet_denoising": _entry("mprnet", "mprNetDenoise", "model/MPRNet/model_denoising.pth",
+                               TileSpec(256, 8, 8, 1.0, 2)),
+    "NAFNet_32": _entry("nafnet", "nafNetSIDD32", "model/NAFNet/NAFNet-SIDD-width32.pth",
+                        TileSpec(256, 16, 16, 1.0, 4)),
+    "NAFNet_64": _entry("nafnet", "nafNetSIDD64", "model/NAFNet/NAFNet-SIDD-width64.pth",
+                        TileSpec(256, 16, 16, 1.0, 2)),
+    "VSR_Cleaning": _entry("restore", "imageCleaning", "model/vsr/RealBasicVSR_ImageCleaning.pth",
+                           TileSpec(256, 8, 8, 1.0, 4)),
 }
-DN_NOT_PORTED = {"MPRNet_denoising", "NAFNet_32", "NAFNet_64", "VSR_Cleaning"}  # ROADMAP A7
 
 # --- dehaze / deblur / derain / demoire / retouch -------------------------
 _sunConvT = lambda k, s: s[2] == 4
@@ -117,6 +122,18 @@ DEHAZE_REGISTRY = {
                      TileSpec(256, 8, 8, 1.0, 8), prepare=_normalize05),
     "sun": _entry("demoire", "sunDemoire", "model/demoire/sun_epoch_200.pth",
                   TileSpec(256, 16, 32, 1.0, 4), convT=_sunConvT),
+    "moire_obj": _entry("demoire", "moireObj", "model/demoire/moire_obj.pth", TileSpec(128, 16, 128, 1.0, 4)),
+    "moire_screen_gan": _entry("demoire", "moireScreenGan", "model/demoire/moire_screen_gan.pth",
+                               TileSpec(512, 32, 512, 1.0, 1)),
+    "MPRNet_deblurring": _entry("mprnet", "mprNet", "model/MPRNet/model_deblurring.pth", TileSpec(256, 8, 8, 1.0, 2)),
+    "MPRNet_deraining": _entry("mprnet", "mprNetDerain", "model/MPRNet/model_deraining.pth",
+                               TileSpec(256, 8, 8, 1.0, 4)),
+    "NAFNet_deblur_32": _entry("nafnet", "nafNetGoPro32", "model/NAFNet/NAFNet-GoPro-width32.pth",
+                               TileSpec(256, 16, 16, 1.0, 4)),
+    "NAFNet_deblur_64": _entry("nafnet", "nafNetGoPro64", "model/NAFNet/NAFNet-GoPro-width64.pth",
+                               TileSpec(256, 16, 16, 1.0, 2)),
+    "NAFNet_deblur_JPEG_64": _entry("nafnet", "nafNetGoPro64", "model/NAFNet/NAFNet-REDS-width64.pth",
+                                    TileSpec(256, 16, 16, 1.0, 2)),
     "AiLUT_sRGB_3": _entry("ailut", "ailutTPAMI", "model/AiLUT/AiLUT-FiveK-sRGB.pth",
                            TileSpec(256, 8, 8, 1.0, 1), fp32=True, noTile=True),
     "AiLUT_XYZ_3": _entry("ailut", "ailutTPAMI", "model/AiLUT/AiLUT-FiveK-XYZ.pth",
@@ -124,8 +141,6 @@ DEHAZE_REGISTRY = {
     "AiLUT_sRGB_5": _entry("ailut", "ailutRes18", "model/AiLUT/AiLUT-PPR10KA-sRGB.pth",
                            TileSpec(256, 8, 8, 1.0, 1), fp32=True, noTile=True),
 }
-DEHAZE_NOT_PORTED = {"moire_obj", "moire_screen_gan", "MPRNet_deblurring", "MPRNet_deraining",
-                     "NAFNet_deblur_32", "NAFNet_deblur_64", "NAFNet_deblur_JPEG_64"}  # ROADMAP A7
 
 
 def _applyConfigSpec(entry: dict, kind: str) -> TileSpec:
@@ -182,8 +197,6 @@ def buildExec(entry: dict, strength: float = 1.0, ensemble: int = 0, kind: str =
 def getSR(opt: dict) -> Optional[ModelExec]:
     """SR step options -> ModelExec."""
     name = opt["model"] + str(int(opt["scale"]))
-    if name in SR_NOT_PORTED:
-        raise NotImplementedError(f"SR model {name!r} is not ported yet (ROADMAP A7)")
     if name not in SR_REGISTRY:
         return None
     ens = opt.get("ensemble", config.ensembleSR)
@@ -196,8 +209,6 @@ def getDN(opt: dict) -> ModelExec:
     the ``lite*`` models take the ``crop_dn`` tile cap, the others
     ``crop_dns``."""
     model = opt["model"]
-    if model in DN_NOT_PORTED:
-        raise NotImplementedError(f"DN model {model!r} is not ported yet (ROADMAP A7)")
     kind = "dn" if model.startswith("lite") else "dns"
     return buildExec(DN_REGISTRY[model], strength=float(opt.get("strength", 1.0)), kind=kind)
 
@@ -205,6 +216,4 @@ def getDN(opt: dict) -> ModelExec:
 def getDehaze(opt: dict) -> ModelExec:
     """dehaze/deblur/derain/demoire/retouch step options -> ModelExec."""
     model = opt.get("model", "dehaze")
-    if model in DEHAZE_NOT_PORTED:
-        raise NotImplementedError(f"dehaze model {model!r} is not ported yet (ROADMAP A7)")
     return buildExec(DEHAZE_REGISTRY[model], strength=float(opt.get("strength", 1.0)))

@@ -3,8 +3,8 @@
 A JSON list of ``{'op': ...}`` dicts compiles to a composed function plus
 a progress-Node list, as in the JAX package.  Every op of the JAX package
 is ported: ``file``, ``buffer``, ``SR``, ``resize``, ``DN``, ``dehaze``,
-``slomo``, ``VSR``, ``demob`` and ``output``; the models the registry has
-not ported raise ``NotImplementedError`` (ROADMAP A7).
+``slomo``, ``VSR``, ``demob`` and ``output``, with every model of the JAX
+package's registries.
 
 In-pipeline image representation: torch float32 HWC in [0, 1] on the
 compute device between steps; the ``output`` step copies to the host.

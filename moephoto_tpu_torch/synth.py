@@ -5,8 +5,8 @@ the GPU smoke test use random weights made from a seed.  The lite and
 ESTRNN draws follow the JAX package's random parameters
 (``__graft_entry__._lite2Params``, ESTRNN's ``synthParams``) in the same
 order, so the same seed gives the same weights in both packages.  The
-sun, AOD, AiLUT, IFRNet,
-IconVSR, MyNet, NetDN and SEDN draws are this module's own; the tests
+sun, AOD, AiLUT, IFRNet, IconVSR, MyNet, NetDN, SEDN, NAFNet, MPRNet,
+RRDBNet, ImageCleaning and moire draws are this module's own; the tests
 hand one dict to both packages.
 
 Conv weights are drawn at 1/sqrt(fan-in), where a ConvTranspose's fan-in
@@ -338,3 +338,86 @@ def synthESTRNNParams(seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
         mod, key = k.split(".", 1)
         out[mod][key] = v
     return {mod: _torchDict(p) for mod, p in out.items()}
+
+
+def _synthByKind(model: torch.nn.Module, seed: int, gain: float) -> Dict[str, torch.Tensor]:
+    """Seeded draws for every entry of ``model.state_dict()``, in its order,
+    by the kind of module that holds it, each kind around the value a trained
+    model keeps (so a dropped or misplaced entry shows in a comparison):
+    conv weights at ``gain`` / sqrt(fan-in) and biases at 0.05, PReLU slopes
+    around 0.25, LayerNorm weights around 1 and biases around 0, learned
+    scalars around 1, NAFNet's ``beta``/``gamma`` uniform in [0.1, 1] (the
+    reference starts them at 0, which makes every block the identity)."""
+    from moephoto_tpu_torch.models.api import LayerNorm2d
+
+    rng = np.random.RandomState(seed)
+    owners = dict(model.named_modules())
+    p: Dict[str, np.ndarray] = {}
+    for k, v in model.state_dict().items():
+        name, _, leaf = k.rpartition(".")
+        owner = owners[name]
+        if isinstance(owner, torch.nn.PReLU):
+            p[k] = 0.25 + 0.05 * rng.randn(*v.shape)
+        elif isinstance(owner, LayerNorm2d):
+            p[k] = (1.0 if leaf == "weight" else 0.0) + 0.1 * rng.randn(*v.shape)
+        elif leaf in ("beta", "gamma"):
+            p[k] = rng.uniform(0.1, 1.0, v.shape)
+        elif leaf == "scale":
+            p[k] = 1.0 + 0.1 * rng.randn(*v.shape)
+        elif v.ndim == 4:
+            p[k] = rng.randn(*v.shape) * gain / np.sqrt(v[0].numel())
+        else:
+            p[k] = 0.05 * rng.randn(*v.shape)
+    return _torchDict({k: v.astype(np.float32) for k, v in p.items()})
+
+
+def synthNAFNetParams(width: int = 32, middleBlkNum: int = 12, encBlkNums=(2, 2, 4, 8), decBlkNums=(2, 2, 2, 2),
+                      seed: int = 0, gain: float = 0.7) -> Dict[str, torch.Tensor]:
+    """State dict of a random NAFNet (``models/nafnet.NAFNet``; the default
+    is NAFNet-SIDD-width32, the ``NAFNet_32`` entry).  Damped draws: every
+    block adds its two branches through ``beta`` and ``gamma``."""
+    from moephoto_tpu_torch.models.nafnet import NAFNet
+
+    return _synthByKind(NAFNet(width, middleBlkNum, encBlkNums, decBlkNums), seed, gain)
+
+
+def synthMPRNetParams(nFeat: int = 80, scaleUnetFeats: int = 48, scaleOrsnetFeats: int = 32, numCab: int = 8,
+                      seed: int = 0, gain: float = 0.7) -> Dict[str, torch.Tensor]:
+    """State dict of a random MPRNet (``models/mprnet.MPRNet``; the default
+    is the denoising configuration).  Damped draws, as the CAB chains add
+    one residual after another."""
+    from moephoto_tpu_torch.models.mprnet import MPRNet
+
+    return _synthByKind(MPRNet(nFeat, scaleUnetFeats, scaleOrsnetFeats, numCab), seed, gain)
+
+
+def synthRRDBParams(scale: int = 4, numBlock: int = 23, seed: int = 0, gain: float = 0.7) -> Dict[str, torch.Tensor]:
+    """State dict of a random RRDBNet (``models/restore.RRDBNet``: ``gan4``
+    by default, ``gan2`` at scale 2, ``gana4`` with 6 blocks), damped."""
+    from moephoto_tpu_torch.models.restore import RRDBNet
+
+    return _synthByKind(RRDBNet(scale, numBlock), seed, gain)
+
+
+def synthImageCleaningParams(seed: int = 0, gain: float = 0.7) -> Dict[str, torch.Tensor]:
+    """State dict of a random ImageCleaning (``models/restore.ImageCleaning``,
+    the ``VSR_Cleaning`` entry), damped over its 20 residual blocks."""
+    from moephoto_tpu_torch.models.restore import ImageCleaning
+
+    return _synthByKind(ImageCleaning(), seed, gain)
+
+
+def synthMoireObjParams(c: int = 64, seed: int = 0, gain: float = 0.7) -> Dict[str, torch.Tensor]:
+    """State dict of a random moire_obj at feature width ``c``
+    (``models/demoire.MoireObj``), damped."""
+    from moephoto_tpu_torch.models.demoire import MoireObj
+
+    return _synthByKind(MoireObj(c), seed, gain)
+
+
+def synthMoireScreenGanParams(c: int = 64, seed: int = 0, gain: float = 0.7) -> Dict[str, torch.Tensor]:
+    """State dict of a random moire_screen_gan at feature width ``c``
+    (``models/demoire.MoireScreenGan``), damped."""
+    from moephoto_tpu_torch.models.demoire import MoireScreenGan
+
+    return _synthByKind(MoireScreenGan(c), seed, gain)

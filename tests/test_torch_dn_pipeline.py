@@ -140,15 +140,19 @@ def test_tiled_mynet_sr_matches_jax(models, scale, fn):
     np.testing.assert_allclose(got, ref, atol=TILED_TOL, rtol=0)
 
 
-def test_unported_dn_and_sr_models_raise_by_name(models):
-    for model in ("MPRNet_denoising", "NAFNet_32", "NAFNet_64", "VSR_Cleaning"):
-        with pytest.raises(NotImplementedError, match=f"{model}.*A7"):
-            registry.getDN({"model": model})
-    with pytest.raises(NotImplementedError, match="gan4.*A7"):
-        registry.getSR({"model": "gan", "scale": 4})
-    assert set(registry.DN_REGISTRY) | registry.DN_NOT_PORTED == set(jaxRegistry.DN_REGISTRY)
-    assert set(registry.SR_REGISTRY) | registry.SR_NOT_PORTED == set(jaxRegistry.SR_REGISTRY)
-    assert set(registry.DEHAZE_REGISTRY) | registry.DEHAZE_NOT_PORTED == set(jaxRegistry.DEHAZE_REGISTRY)
+def test_registries_hold_every_jax_key_and_entry(models):
+    """The port's SR, DN and dehaze registries have exactly the JAX
+    package's keys, each entry the JAX entry's tile spec, family,
+    constructor name and checkpoint path; every step op is ported."""
+    for port, jax_ in ((registry.SR_REGISTRY, jaxRegistry.SR_REGISTRY), (registry.DN_REGISTRY, jaxRegistry.DN_REGISTRY),
+                       (registry.DEHAZE_REGISTRY, jaxRegistry.DEHAZE_REGISTRY)):
+        assert set(port) == set(jax_)
+        for key, entry in port.items():
+            want = jax_[key]
+            assert dataclasses.astuple(entry["spec"]) == dataclasses.astuple(want["spec"]), key
+            assert (entry["family"], entry["fn"], entry["path"]) == (want["family"], want["fn"], want["path"]), key
+            assert callable(getattr(registry._lazyImport(entry["family"]), entry["fn"])), key
+    assert not any(hasattr(registry, f"{k}_NOT_PORTED") for k in ("SR", "DN", "DEHAZE"))
     assert set(steps.procs) == set(jaxSteps.procs) and not hasattr(steps, "NOT_PORTED")  # every step op is ported
 
 

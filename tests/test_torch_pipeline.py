@@ -89,18 +89,42 @@ def test_entry_points_raise_without_gpu(models):
         cli.runImage(src, str(models / "out.png"), STEPS)
 
 
-def test_unported_ops_raise(models, monkeypatch):
-    """The models the port lacks raise by name; ``demob``, which raised
+def test_zoo_models_and_demob_run_through_the_pipeline(models, monkeypatch):
+    """``DN NAFNet_32``, ``SR gan x4`` and ``dehaze NAFNet_deblur_32``, which
+    raised until they were ported, run through ``cli image`` on tiny
+    synthesised checkpoints (both packages' constructors set to the same
+    reduced widths) within 1 LSB of the JAX CLI; ``demob``, which raised
     until ESTRNN was ported, runs through ``cli video`` (the fake ffmpeg, 6
     frames in and out)."""
+    from moephoto_tpu.models import nafnet as jaxNafnet
+    from moephoto_tpu.models import restore as jaxRestore
+    from moephoto_tpu_torch.models import nafnet, restore
     from moephoto_tpu_torch.models.estrnn import modelPaths
-    from moephoto_tpu_torch.pipeline.steps import genProcess
-    from moephoto_tpu_torch.synth import synthESTRNNParams
+    from moephoto_tpu_torch.synth import synthESTRNNParams, synthNAFNetParams, synthRRDBParams
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        genProcess([{"op": "file"}, {"op": "DN", "model": "NAFNet_32"}, {"op": "output"}])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        genProcess([{"op": "file"}, {"op": "SR", "model": "gan", "scale": 4}, {"op": "output"}])
+    naf = (8, 2, (1, 2), (2, 1))
+    (models / "NAFNet").mkdir()
+    (models / "gan").mkdir()
+    torch.save(synthNAFNetParams(*naf, seed=12), str(models / "NAFNet" / "NAFNet-SIDD-width32.pth"))
+    torch.save(synthNAFNetParams(*naf, seed=13), str(models / "NAFNet" / "NAFNet-GoPro-width32.pth"))
+    torch.save(synthRRDBParams(4, 2, seed=14), str(models / "gan" / "RealESRGAN_x4plus.pth"))
+    for mod, fn, make in ((nafnet, "nafNetSIDD32", lambda: nafnet.NAFNet(*naf)),
+                          (nafnet, "nafNetGoPro32", lambda: nafnet.NAFNet(*naf)),
+                          (restore, "rrdbNetX4", lambda: restore.RRDBNet(4, 2)),
+                          (jaxNafnet, "nafNetSIDD32", jaxNafnet.makeNAFNet(8, 2, [1, 2], [2, 1])),
+                          (jaxNafnet, "nafNetGoPro32", jaxNafnet.makeNAFNet(8, 2, [1, 2], [2, 1])),
+                          (jaxRestore, "rrdbNetX4", jaxRestore.makeRRDBNet(4, 2))):
+        monkeypatch.setattr(mod, fn, make)
+    src = str(models / "in.png")
+    Image.fromarray(np.random.RandomState(2).randint(0, 256, (24, 20, 3), np.uint8)).save(src)
+    for step, shape in (({"op": "DN", "model": "NAFNet_32"}, (24, 20, 3)),
+                        ({"op": "SR", "model": "gan", "scale": 4}, (96, 80, 3)),
+                        ({"op": "dehaze", "model": "NAFNet_deblur_32"}, (24, 20, 3))):
+        cli.runImage(src, str(models / "port.png"), [dict(step)])
+        jaxCli.runImage(src, str(models / "jax.png"), [dict(step)])
+        got = np.asarray(Image.open(models / "port.png")).astype(np.int32)
+        ref = np.asarray(Image.open(models / "jax.png")).astype(np.int32)
+        assert got.shape == ref.shape == shape and np.abs(got - ref).max() <= 1 and got.std() > 1, step
     (models / "ESTRNN").mkdir()
     torch.save(synthESTRNNParams(0), str(models / modelPaths["1ms8ms"][len("model/"):]))
     ff = models / "ffmpeg"

@@ -115,10 +115,34 @@ def test_rgba_alpha_passes_around_whole_image_model(models):
     np.testing.assert_array_equal(got[..., :3], np.asarray(Image.open(models / "port_rgb.png")))
 
 
-def test_unported_dehaze_model_raises(models):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registry.getDehaze({"model": "NAFNet_deblur_32"})
+def test_zoo_dehaze_models_run_through_the_dehaze_step(models, monkeypatch):
+    """``NAFNet_deblur_32`` and ``MPRNet_deraining``, which raised until they
+    were ported, build through ``getDehaze`` with the JAX entries' tile
+    specs and run on tiny synthesised checkpoints (both packages'
+    constructors set to the same reduced widths) within the tiled tolerance
+    of the JAX executors; ``genProcess`` compiles the step."""
+    from moephoto_tpu.models import mprnet as jaxMprnet
+    from moephoto_tpu.models import nafnet as jaxNafnet
+    from moephoto_tpu_torch import progress
+    from moephoto_tpu_torch.models import mprnet, nafnet
     from moephoto_tpu_torch.pipeline.steps import genProcess
+    from moephoto_tpu_torch.synth import synthMPRNetParams, synthNAFNetParams
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        genProcess([{"op": "file"}, {"op": "dehaze", "model": "NAFNet_deblur_32"}, {"op": "output"}])
+    (models / "NAFNet").mkdir()
+    (models / "MPRNet").mkdir()
+    torch.save(synthNAFNetParams(8, 2, (1, 2), (2, 1), seed=24), str(models / "NAFNet" / "NAFNet-GoPro-width32.pth"))
+    torch.save(synthMPRNetParams(16, 8, 8, 2, seed=25), str(models / "MPRNet" / "model_deraining.pth"))
+    monkeypatch.setattr(nafnet, "nafNetGoPro32", lambda: nafnet.NAFNet(8, 2, (1, 2), (2, 1)))
+    monkeypatch.setattr(mprnet, "mprNetDerain", lambda: mprnet.MPRNet(16, 8, 8, 2))
+    monkeypatch.setattr(jaxNafnet, "nafNetGoPro32", jaxNafnet.makeNAFNet(8, 2, [1, 2], [2, 1]))
+    monkeypatch.setattr(jaxMprnet, "mprNetDerain", jaxMprnet.makeMPRNet(16, 8, 8, 2))
+    x = _image(5, 40, 48)
+    for model in ("NAFNet_deblur_32", "MPRNet_deraining"):
+        ex = registry.getDehaze({"model": model})
+        assert ex.spec == registry.DEHAZE_REGISTRY[model]["spec"] and not ex.noTile
+        got = ex(torch.from_numpy(x)).numpy()
+        ref = np.asarray(jaxRegistry.getDehaze({"model": model})(x))
+        assert got.shape == ref.shape == (40, 48, 3)
+        np.testing.assert_allclose(got, ref, atol=TILED_TOL, rtol=0)
+        _, nodes = genProcess([{"op": "file"}, {"op": "dehaze", "model": model}, {"op": "output"}])
+        assert [progress._registry[n.op].op.get("op") for n in nodes].count(model) == 1
