@@ -144,6 +144,23 @@ Phases, each printing one JSON line:
               IconVSR's shapes, beside F.grid_sample on each shard's halo
               window), and VSR and demob Mpx/s sharded
               against single-device
+ 13. server   the product surface: ``python3 app_torch.py`` started in a
+              fresh working directory (its two processes, pipes and
+              shared-memory block) with the synth weights above, then over
+              127.0.0.1: /systemInfo (free MiB of the one card), the main
+              phase's 1080p PNG through /image_enhance lite x4 twice (each
+              within 1 LSB of its output; a /msg long-poll beside the first
+              returns progress notes), /batch_enhance of two 480x270 PNGs (2
+              done, 0 failed), /video_enhance IFRNet-M slomo x2 on the fake
+              ffmpeg's 9 frames (17 frames, each within 1 LSB of the video
+              phase's), lockInterface ended by /stop (Interrupted, within
+              5 s), a malformed /image_enhance (400, Fail) and a request
+              served after it; SIGINT, and no process and no shared-memory
+              block left; then the same server and worker() loop in this
+              process (threads, real pipes and shared memory) for one image
+              and one video request: 4 fusedUpHeads and 64 warp launches,
+              outputs within 1 LSB of the app's, each request's time split
+              into upload, worker (PNG decode and encode apart) and reply
 Each phase's seconds go into a ``phase_seconds`` line.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -2689,6 +2706,495 @@ def driveUnpathed(lutInput, lutModel, n=2):
     return counts["ailutTransformSpmd"]
 
 
+# --- the server phase: the two-process app as a user drives it ---------------
+
+SERVER_START_S = 120  # the app answers within this after its start
+STOP_REPLY_S = 5  # /stop ends a lockInterface within this
+BATCH_W, BATCH_H = 480, 270  # each of the two /batch_enhance images
+VIDEO_STEPS = [{"op": "decode"}, {"op": "range"}, *SLOMO, {"op": "output"}]
+
+
+def recordingFfmpeg(work):
+    """An executable that runs the repository's fake ffmpeg and, on an
+    encode call (``-i -``), also keeps the raw frames it is sent in
+    ``<output>.raw``: the app's frames, read after it ran."""
+    path = os.path.join(work, "ffmpeg_rec")
+    fake = os.path.join(ROOT, "tools", "fakeffmpeg.py")
+    with open(path, "w") as fp:
+        fp.write(f'#!/bin/sh\nfor a; do last=$a; done\ncase " $* " in\n'
+                 f'  *" -i - "*) tee "$last.raw" | "{sys.executable}" "{fake}" "$@"; exit $? ;;\nesac\n'
+                 f'exec "{sys.executable}" "{fake}" "$@"\n')
+    os.chmod(path, 0o755)
+    return path
+
+
+def freePort():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multipart(fields, files):
+    """A multipart/form-data body: ``files`` is a list of (field, filename, bytes)."""
+    import uuid
+
+    boundary = uuid.uuid4().hex
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts += [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; filename="{name}"\r\n'
+              f'Content-Type: application/octet-stream\r\n\r\n'.encode() + data + b"\r\n" for k, name, data in files]
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def post(port, path, fields, files=(), timeout=600):
+    """POST a form to the app on 127.0.0.1: (status, parsed JSON or text,
+    client seconds {upload, wait, read, wall}).  ``upload`` ends when the
+    body is sent, ``wait`` when the reply's headers arrive."""
+    import http.client
+
+    body, ctype = multipart(fields, files)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body, {"Content-Type": ctype})
+        t1 = time.perf_counter()
+        resp = conn.getresponse()
+        t2 = time.perf_counter()
+        data = resp.read()
+        t3 = time.perf_counter()
+    finally:
+        conn.close()
+    try:
+        parsed = json.loads(data)
+    except ValueError:
+        parsed = data.decode(errors="replace")
+    return resp.status, parsed, {"upload": t1 - t0, "wait": t2 - t1, "read": t3 - t2, "wall": t3 - t0}
+
+
+def get(port, path, timeout=60):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class MsgPoller:
+    """While entered: GET /msg for ``session`` on ``path`` again and again,
+    keeping every JSON note the app returns with the time it came."""
+
+    def __init__(self, port, session, path):
+        import threading
+        import urllib.parse
+
+        self.url = "/msg?" + urllib.parse.urlencode({"session": session, "path": path})
+        self.port, self.notes, self.done = port, [], threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+
+    def run(self):
+        while not self.done.is_set():
+            status, data = get(self.port, self.url)
+            if status == 200 and data:
+                note = json.loads(data)
+                if isinstance(note, dict):
+                    self.notes.append((time.perf_counter(), note))
+            elif status != 200:
+                time.sleep(0.05)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join(30)
+        return False
+
+
+def procStat(pid):
+    """(state, parent pid) of a process from /proc, or None once it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as fp:
+            fields = fp.read().rsplit(")", 1)[1].split()
+    except (FileNotFoundError, ProcessLookupError):
+        return None
+    return fields[0], int(fields[1])
+
+
+def descendants(pid):
+    """Every live process under ``pid``."""
+    parents = {}
+    for p in os.listdir("/proc"):
+        st = procStat(p) if p.isdigit() else None
+        if st and st[0] != "Z":
+            parents.setdefault(st[1], []).append(int(p))
+    out, todo = [], [pid]
+    while todo:
+        kids = parents.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def cudaContexts():
+    """The number of processes holding a CUDA context on the cards."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return len(out.split())
+
+
+def pngOf(arr):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def readPng(path):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def lsbApart(got, want):
+    if got.shape != want.shape:
+        return float("inf")
+    return int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+
+
+def rawFrames(path, count):
+    raw = np.fromfile(path, np.uint16)
+    if raw.size != count * W * H * 3:
+        raise AssertionError(f"{path}: {raw.size} samples, want {count} frames of {W}x{H}x3")
+    return list(raw.reshape(count, -1))
+
+
+def holdFrames(name, got, want):
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} frames, want {len(want)}")
+    lsb = max(lsbApart(g, w) for g, w in zip(got, want))
+    if lsb > 1:
+        raise AssertionError(f"{name}: frames {lsb} LSB apart, want at most 1")
+    return lsb
+
+
+def runServerApp(work, mainIn, mainOut, videoFrames):
+    """``python3 app_torch.py`` in a fresh working directory, as a user starts
+    it, with the synth weights of the earlier phases: /systemInfo, two
+    /image_enhance of the main phase's PNG (each within 1 LSB of its
+    output, a /msg long-poll beside the first), /batch_enhance of two
+    images, /video_enhance of the video phase's 9 frames (17 frames, each
+    within 1 LSB of its), lockInterface stopped by /stop, a malformed
+    request and the one after it; then SIGINT, and neither a process nor
+    the shared-memory block may be left."""
+    import signal
+    from multiprocessing.shared_memory import SharedMemory
+
+    import app_torch
+
+    cwd = os.path.join(work, "app")
+    os.makedirs(os.path.join(cwd, ".user"))
+    port = freePort()
+    with open(os.path.join(cwd, ".user", "config.json"), "w") as fp:
+        json.dump({"modelDir": work, "ffmpegPath": recordingFfmpeg(work), "port": port, "device": "cuda",
+                   "opsPath": os.path.join(cwd, ".user", "ops.json")}, fp)
+    env = dict(os.environ, FAKEFF_SIZE=f"{W}x{H}", FAKEFF_FRAMES=str(VIDEO_FRAMES))
+    contextsBefore = cudaContexts()
+    logPath = os.path.join(work, "app.log")
+    log = open(logPath, "wb")
+    t0 = time.perf_counter()
+    app = subprocess.Popen([sys.executable, os.path.join(ROOT, "app_torch.py")], cwd=cwd, env=env,
+                           stdout=log, stderr=subprocess.STDOUT)
+    out, timing, children = {}, {}, []
+
+    def appLog():
+        with open(logPath, errors="replace") as fp:
+            return fp.read()[-4000:]
+
+    def need(cond, what):
+        if not cond:
+            raise AssertionError(f"server: {what}\napp log:\n{appLog()}")
+
+    try:
+        while True:
+            need(app.poll() is None, f"the app exited with {app.returncode}")
+            try:
+                status, _ = get(port, "/preset?path=image", timeout=5)
+                break
+            except OSError:
+                need(time.perf_counter() - t0 < SERVER_START_S, f"no answer within {SERVER_START_S} s")
+                time.sleep(0.1)
+        timing["first_answer_s"] = time.perf_counter() - t0
+        out["first_answer_status"] = status
+
+        status, body, t = post(port, "/systemInfo", {"session": "sys"})
+        need(status == 200 and isinstance(body["result"], list) and len(body["result"]) == torch.cuda.device_count()
+             and all(m > 0 for m in body["result"]), f"/systemInfo {status} {body}")
+        out["system_info_free_mib"], timing["system_info_s"] = body["result"], t["wall"]
+
+        png = open(mainIn, "rb").read()
+        for i, name in enumerate(("image_first", "image_warm")):
+            with MsgPoller(port, name, "/image_enhance") as poller:
+                tReq = time.perf_counter()
+                status, body, t = post(port, "/image_enhance", {"session": name, "steps": json.dumps(STEPS)},
+                                       [("file", "in.png", png)])
+            need(status == 200, f"/image_enhance {status} {body}")
+            got = readPng(os.path.join(cwd, body["result"]))
+            lsb = lsbApart(got, mainOut)
+            need(lsb <= 1, f"{name}: {body['result']} {got.shape} is {lsb} LSB from the main phase's output")
+            progress = [(at, n) for at, n in poller.notes if "eta" in n and "total" in n]
+            if i == 0:
+                need(progress, f"/msg gave no progress note with eta during the first request: {poller.notes}")
+            out[name] = {"file": body["result"], "lsb_from_main": lsb, "progress_notes": len(progress),
+                         "notes": len(poller.notes)}
+            # the worker's first progress note comes when its chain is built (models loaded) and starts
+            timing[name] = dict(t, to_first_progress_note=progress[0][0] - tReq if progress else None)
+        imageOut = got
+
+        smalls = [np.random.RandomState(90 + i).randint(0, 256, (BATCH_H, BATCH_W, 3), dtype=np.uint8)
+                  for i in range(2)]
+        status, body, t = post(port, "/batch_enhance", {"session": "batch", "steps": json.dumps(STEPS)},
+                               [("file", f"b{i}.png", pngOf(a)) for i, a in enumerate(smalls)])
+        need(status == 200, f"/batch_enhance {status} {body}")
+        result, count, done, fail = body["result"][:4]
+        need((result, count, len(done), fail) == ("Success", 2, 2, 0), f"/batch_enhance {body}")
+        for name in done:
+            need(readPng(os.path.join(cwd, name)).shape == (UPSCALE * BATCH_H, UPSCALE * BATCH_W, 3), name)
+        out["batch"], timing["batch"] = {"done": count, "failed": fail}, t
+
+        status, body, t = post(port, "/video_enhance", {"session": "video", "steps": json.dumps(VIDEO_STEPS)},
+                               [("file", "in.mkv", b"fake container")])
+        need(status == 200, f"/video_enhance {status} {body}")
+        path, frames = body["result"]
+        with open(os.path.join(cwd, path)) as fp:
+            meta = json.load(fp)
+        need(frames == VIDEO_FRAMES and meta == {"bytes": (2 * VIDEO_FRAMES - 1) * W * H * 6, "s": f"{W}x{H}"},
+             f"/video_enhance read {frames} frames, the encoder got {meta}")
+        videoOut = rawFrames(os.path.join(cwd, path) + ".raw", 2 * VIDEO_FRAMES - 1)
+        out["video"] = {"frames_in": frames, "frames_out": len(videoOut),
+                        "lsb_from_video_phase": holdFrames("/video_enhance", videoOut, videoFrames)}
+        timing["video"] = t
+
+        import threading
+
+        lock = {}
+        locker = threading.Thread(target=lambda: lock.update(zip(
+            ("status", "body", "t"), post(port, "/lockInterface", {"session": "lock",
+                                                                   "steps": json.dumps([{"duration": 30}])}))))
+        locker.start()
+        while True:
+            status, _, _ = post(port, "/stop", {"session": "lock"})
+            if status == 200:
+                break
+            need(locker.is_alive() and time.perf_counter() - t0 < 1200, f"/stop never found the lock: {status}")
+            time.sleep(0.1)
+        tStop = time.perf_counter()
+        locker.join(STOP_REPLY_S)
+        stopS = time.perf_counter() - tStop
+        need(not locker.is_alive() and lock["status"] == 200 and lock["body"]["result"] == "Interrupted"
+             and lock["body"]["remain"] > 0 and stopS <= STOP_REPLY_S, f"lockInterface after /stop: {lock}")
+        out["stop"] = {"reply": lock["body"], "seconds_after_stop": stopS}
+
+        status, body, t = post(port, "/image_enhance", {"session": "bad", "steps": json.dumps(STEPS)},
+                               [("file", "bad.png", b"not a png")])
+        need(status == 400 and body["result"] == "Fail", f"malformed /image_enhance: {status} {body}")
+        status2, body2, _ = post(port, "/image_enhance", {"session": "after", "steps": json.dumps(STEPS)},
+                                 [("file", "after.png", pngOf(smalls[0]))])
+        need(status2 == 200, f"the request after a failed one: {status2} {body2}")
+        out["malformed"] = {"status": status, "result": body["result"], "next_status": status2}
+
+        children = descendants(app.pid)
+        need(children, "the app has no worker process")
+        need(os.path.exists("/dev/shm/" + app_torch.shmName(app.pid)), "no shared-memory block named after the app")
+        withApp = cudaContexts()  # nvidia-smi may see other pid numbers: count them
+        need(withApp == contextsBefore + 1, f"{withApp} CUDA contexts with the app running, {contextsBefore} before "
+             "it started: want one more, the worker's (the HTTP process must hold none)")
+        out["cuda_contexts"] = {"before_app": contextsBefore, "with_app": withApp}
+        app.send_signal(signal.SIGINT)
+        app.wait(30)
+    finally:
+        if app.poll() is None:
+            app.kill()
+            app.wait()
+        log.close()
+        deadline = time.perf_counter() + 30
+        while any(procStat(p) and procStat(p)[0] != "Z" for p in children) and time.perf_counter() < deadline:
+            time.sleep(0.2)
+        left = [p for p in children if procStat(p) and procStat(p)[0] != "Z"]
+        for p in left:
+            os.kill(p, signal.SIGKILL)
+        try:
+            SharedMemory(app_torch.shmName(app.pid)).unlink()
+            blockLeft = True
+        except FileNotFoundError:
+            blockLeft = False
+    if left or blockLeft or app.returncode != 0:
+        raise AssertionError(f"server: after SIGINT the app exited {app.returncode}, left processes {left}, "
+                             f"left its shared-memory block: {blockLeft}\napp log:\n{appLog()}")
+    out["shutdown"] = {"exit": app.returncode, "processes_left": 0, "shared_memory_left": False,
+                       "children_seen": len(children)}
+    return out, timing, imageOut, videoOut
+
+
+class Stamps:
+    """Wall-clock stamps of the in-process app's spans, by name (each call of
+    a wrapped function adds a (start, end) pair)."""
+
+    def __init__(self):
+        self.spans = {}
+
+    def wrap(self, name, f):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kwargs)
+            finally:
+                self.spans.setdefault(name, []).append((t0, time.perf_counter()))
+
+        return timed
+
+    def last(self, name):
+        return self.spans[name][-1]
+
+    def total(self, name, since):
+        return sum(b - a for a, b in self.spans.get(name, []) if a >= since)
+
+
+class TimedPipe:
+    def __init__(self, pipe, stamps, name):
+        self.pipe, self.stamps, self.name = pipe, stamps, name
+
+    def send(self, obj):
+        self.stamps.spans.setdefault(self.name, []).append((time.perf_counter(),) * 2)
+        return self.pipe.send(obj)
+
+    def __getattr__(self, k):
+        return getattr(self.pipe, k)
+
+
+def runServerInProcess(work, appImage, appVideo):
+    """The same server and ``worker()`` loop in this process: the server's
+    WSGI app on a socket in one thread, the worker in another, over real
+    pipes, a real stop event and a real shared-memory block.  One
+    /image_enhance and one /video_enhance, their K1 and K2 launches
+    counted (4 and 64), their outputs within 1 LSB of the app's; the
+    request time split into upload (until the task is on the pipe),
+    worker (the route; its PNG decode and encode apart) and reply."""
+    import multiprocessing as mp
+    import threading
+    from multiprocessing.shared_memory import SharedMemory
+
+    from werkzeug.serving import make_server
+
+    import app_torch
+    from moephoto_tpu_torch.config import defaultConfig
+    from moephoto_tpu_torch.runtime.worker import worker
+    from moephoto_tpu_torch.utils import imageio
+
+    cwd, before = os.path.join(work, "inproc"), os.getcwd()
+    os.makedirs(cwd)
+    os.chdir(cwd)  # the server keeps its paths relative to the working directory, as in the app
+    os.environ["FAKEFF_SIZE"], os.environ["FAKEFF_FRAMES"] = f"{W}x{H}", str(VIDEO_FRAMES)
+    shm = SharedMemory(create=True, size=defaultConfig["sharedMemSize"][0])
+    taskRx, taskTx = mp.Pipe(False)
+    resultRx, resultTx = mp.Pipe(False)
+    noteRx, noteTx = mp.Pipe(False)
+    stop = mp.Event()
+    stamps = Stamps()
+    routes = {k: stamps.wrap(k, f) for k, f in app_torch.routes().items()}
+    saved = imageio.readFile, imageio.writeFile
+    imageio.readFile, imageio.writeFile = stamps.wrap("decode", imageio.readFile), stamps.wrap("encode", imageio.writeFile)
+
+    def serve():
+        try:
+            worker(lambda: (shm, routes), taskRx, resultTx, noteTx, stop, False)
+        except EOFError:  # the task pipe closed: the phase is over
+            pass
+
+    loop = threading.Thread(target=serve, daemon=True)
+    loop.start()
+    import moephoto_tpu_torch.runtime.server as S
+
+    S.runserver(taskTx, resultRx, noteRx, stop, shm, False)
+    S.sender = TimedPipe(S.sender, stamps, "task_sent")
+    port = freePort()
+    httpd = make_server("127.0.0.1", port, S.app, threaded=True)
+    web = threading.Thread(target=httpd.serve_forever, daemon=True)
+    web.start()
+    out, timing = {}, {}
+    try:
+        png = open(os.path.join(work, "in.png"), "rb").read()
+
+        def split(tReq, tEnd, route):
+            r0, r1 = stamps.last(route)
+            return {"wall": tEnd - tReq, "upload": stamps.last("task_sent")[0] - tReq, "worker": r1 - r0,
+                    "decode": stamps.total("decode", r0), "encode_and_write": stamps.total("encode", r0),
+                    "reply": tEnd - r1}
+
+        resetCounts()
+        tReq = time.perf_counter()
+        status, body, _ = post(port, "/image_enhance", {"session": "i1", "steps": json.dumps(STEPS)},
+                               [("file", "in.png", png)])
+        tEnd = time.perf_counter()
+        counts = readCounts()
+        if status != 200:
+            raise AssertionError(f"in-process /image_enhance: {status} {body}")
+        lsb = lsbApart(readPng(body["result"]), appImage)
+        if counts["fusedUpHeads"] != 4 or lsb > 1:
+            raise AssertionError(f"in-process /image_enhance: launches {counts}, {lsb} LSB from the app's")
+        out["image"] = {"launches": counts, "lsb_from_app": lsb}
+        timing["image"] = split(tReq, tEnd, "image_enhance")
+        with FrameCapture() as cap:
+            resetCounts()
+            tReq = time.perf_counter()
+            status, body, _ = post(port, "/video_enhance", {"session": "v1", "steps": json.dumps(VIDEO_STEPS)},
+                                   [("file", "in.mkv", b"fake container")])
+            tEnd = time.perf_counter()
+            counts = readCounts()
+        if status != 200 or counts["warp"] != 8 * (VIDEO_FRAMES - 1):
+            raise AssertionError(f"in-process /video_enhance: {status} {body}, launches {counts}")
+        frames = [np.frombuffer(b, np.uint16) for b in cap.frames]
+        out["video"] = {"launches": counts, "frames_out": len(frames),
+                        "lsb_from_app": holdFrames("in-process /video_enhance", frames, appVideo)}
+        timing["video"] = split(tReq, tEnd, "video_enhance")
+    finally:
+        httpd.shutdown()
+        web.join(30)
+        taskTx.close()
+        loop.join(30)
+        imageio.readFile, imageio.writeFile = saved
+        from moephoto_tpu_torch.runtime.context import context
+
+        context.shared = context.sharedView = None  # drop the views before the block closes
+        shm.close()
+        shm.unlink()
+        os.chdir(before)
+    if loop.is_alive() or web.is_alive():
+        raise AssertionError("the in-process worker or server thread did not stop")
+    return out, timing
+
+
+def runServer(work, smi, videoFrames):
+    """The ``server`` phase: the app in its own processes, then the same
+    server and worker loop in this one."""
+    torch.cuda.empty_cache()  # the app's worker is another process on this card
+    mainOut = readPng(os.path.join(work, "out.png"))
+    app, appTiming, appImage, appVideo = runServerApp(work, os.path.join(work, "in.png"), mainOut, videoFrames)
+    inproc, inprocTiming = runServerInProcess(work, appImage, appVideo)
+    emit(phase="server", gpu=smi, steps=STEPS, video_steps=VIDEO_STEPS, app=app, in_process=inproc)
+    emit(phase="server_timing", gpu=smi, app_client_seconds=appTiming, in_process_seconds=inprocTiming)
+    return inproc["image"]["launches"]["fusedUpHeads"], inproc["video"]["launches"]["warp"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2805,7 +3311,7 @@ def main(argv=None) -> int:
         with Image.open(os.path.join(work, "out.png")) as out:
             runMeshImage(work, 2, np.asarray(out))
         k2aLaunches = {n: runMeshVideo(work, n, slomoFrames) for n in MESH_SIZES}
-        slomoFrames = runSingleVideo(work, UHD, UHD_FRAMES)
+        videoFrames, slomoFrames = slomoFrames, runSingleVideo(work, UHD, UHD_FRAMES)
         for n in MESH_SIZES:
             runMeshVideo(work, n, slomoFrames, UHD, UHD_FRAMES)
         del slomoFrames
@@ -2819,11 +3325,14 @@ def main(argv=None) -> int:
         mk = timingMesh(args.seed, smi, pathInputs, vsrWarps, dcnInputs, lutInput, lutModel)
         timingMeshModels(args.seed, smi)
         mark("mesh")
+        serverLaunches = runServer(work, smi, videoFrames)
+        del videoFrames
+        mark("server")
     emit(phase="phase_seconds", seconds=phaseSeconds, total=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
-        "replaces": "moephoto_tpu/ops/fusedup.py:93", "launches": launches,
+        "replaces": "moephoto_tpu/ops/fusedup.py:93", "launches": launches, "launches_server": serverLaunches[0],
         "max_abs_err": errs["nUps2_c48_M1966080_bfloat16"], "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"], "library_ms": None, "variant": kt["variant"],
     }, {
@@ -2833,7 +3342,7 @@ def main(argv=None) -> int:
         "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"], "library_ms": None, "cold_ms": lt["cold_ms"],
     }, {
         "name": "warp", "route": "cuda", "source": "moephoto_tpu_torch/csrc/warp.cu",
-        "replaces": "moephoto_tpu/ops/warp.py:170", "launches": warpLaunches,
+        "replaces": "moephoto_tpu/ops/warp.py:170", "launches": warpLaunches, "launches_server": serverLaunches[1],
         "max_abs_err": warpErr, "ms": wt["ms"], "plain_ms": wt["plain_ms"],
         "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"], "library_ms": wt["library_ms"],
     }, {

@@ -33,6 +33,9 @@ defaultConfig: Dict[str, tuple] = {
     "logPath": (".user/log.txt",),
     "opsPath": (".user/ops.json",),
     "videoPreview": ("jpeg",),
+    "maxResultsKept": (1 << 10, "session notes and results the server keeps"),
+    "sharedMemSize": (100 * 2**20, "server<->worker image exchange buffer bytes"),
+    "port": (2333,),
     "progressDetail": (False,),
     "ffmpegPath": ("ffmpeg", "external ffmpeg binary for video decode/encode"),
     "tileSize": (0, "0 = per-model default tile size"),
@@ -137,6 +140,15 @@ class Config:
         kwargs["timestamp"] = int(time.time())
         d = {k: v for k, v in kwargs.items() if k in self.videoName}
         return self.videoName.format(**d)
+
+    def system(self):
+        """Free device memory in MiB, one entry a device: each CUDA card's
+        from ``torch.cuda.mem_get_info``; with ``device`` 'cpu' the one
+        host device, which has no memory stats, as 0.  Raises when CUDA is
+        asked for but absent."""
+        if self.torchDevice().type == "cpu":
+            return [0]
+        return [torch.cuda.mem_get_info(i)[0] // 2**20 for i in range(torch.cuda.device_count())]
 
 
 config = Config()

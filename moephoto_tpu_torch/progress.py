@@ -165,6 +165,17 @@ def setCallback(node, callback, all: bool = False, bench: bool = False):
     walk(node)
 
 
+def recurse(f):
+    """A function that applies ``f`` to a node and all its descendants,
+    parents first."""
+    def walk(n):
+        f(n)
+        for c in n.nodes:
+            walk(c)
+
+    return walk
+
+
 def settle(result):
     """Wait for the device work behind ``result`` when it is a tensor
     that does not live on the CPU."""
@@ -197,6 +208,29 @@ class Node:
         self.nodes.append(child)
         child.parent = self
         return self
+
+    def remove(self, update: bool = False):
+        """Detach from the parent; ``update`` re-sums the parent's and its
+        ancestors' estimates."""
+        parent = self.parent
+        parent.nodes.remove(self)
+        self.parent = None
+        if update:
+            updateNode(parent)
+            updateAncestor(parent)
+
+    def moveTo(self, target: "Node", pos: int = -1):
+        """Re-parent under ``target`` at ``pos`` (-1 = last)."""
+        changed = self.parent != target
+        if self.parent:
+            self.remove(changed)
+        if pos < 0:
+            target.append(self)
+        else:
+            target.nodes.insert(pos, self)
+            self.parent = target
+        if changed:
+            updateAncestor(self)
 
     def setCallback(self, callback=NullFunc, bench: bool = False):
         stats = _registry[self.op]
@@ -250,3 +284,17 @@ class Node:
             return result
 
         return wrapped
+
+    def update(self, content: dict):
+        """Overwrite fields (an ``op`` dict is keyed) and re-sum the
+        estimates up the tree."""
+        if "op" in content:
+            content["op"] = opKey(content["op"])
+        self.__dict__.update(content)
+        updateNode(self)
+        updateAncestor(self)
+
+    def toStop(self):
+        """End this node after the current unit and report it."""
+        self.total = self.gone + 1
+        return self.trace(0)

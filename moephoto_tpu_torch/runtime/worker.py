@@ -1,16 +1,51 @@
-"""Worker-side task runtime: the progress tree and its callbacks.
+"""Worker-process task runtime.
 
-Ported so far: :func:`begin`, which the video engine calls to root a
-task's progress tree, and the callback that reports it
-(:func:`onProgress`) through the notifier.  The request loop waits for
-the server slice.
+The worker side of the two-process app: it owns the progress tree,
+decorates task handlers with structured error capture, and serves the
+requests that arrive over the task pipe.  Progress callbacks stream
+``{eta, gone, total, stage}`` dicts to the server through the notifier
+pipe; learned op timings persist through ``progress.saveOps``.
+
+Between tasks the worker runs a garbage-collection pass and, when a card
+is in use, empties PyTorch's CUDA allocator cache, as the reference
+emptied its allocator between tasks.
 """
 
 from __future__ import annotations
 
+import gc
+import logging
+from traceback import format_exc
+
+import torch
+
 from moephoto_tpu_torch.config import config
-from moephoto_tpu_torch.progress import clearOps, initialETA, saveOps, setCallback
+from moephoto_tpu_torch.progress import clearOps, initialETA, loadOps, saveOps, setCallback
 from moephoto_tpu_torch.runtime.context import context
+from moephoto_tpu_torch.utils.logger import initLogging
+
+log = logging.getLogger("Moe")
+
+
+def _describeCall(f, args):
+    """Loggable call signature with model opts elided.
+
+    Dict args are COPIED here: genProcess attaches live ``ModelExec``
+    objects ('opt', whose modules live on the card) to the step dicts it
+    receives, so a description that aliased them would become
+    unpicklable the moment the task starts, and the failure reply that
+    carries it would break the worker's result pipe."""
+
+    def strip(a):
+        if isinstance(a, dict):
+            return {k: v for k, v in a.items() if k != "opt"}
+        return a
+
+    return [f.__name__] + [strip(a) for a in args]
+
+
+filterOpt = lambda item: _describeCall(lambda: 0, [item])[1]
+getInfo = _describeCall
 
 
 def _notify(payload: dict):
@@ -50,3 +85,62 @@ def begin(root, nodes=[], setAllCallback=True, bench=False, clear=False):
     clearOps(root, clear)
     initialETA(root)
     return root
+
+
+def clean():
+    """Release the previous task's intermediates promptly: a GC pass, then
+    the CUDA allocator's cached blocks when a card is in use."""
+    gc.collect()
+    if torch.device(config.device).type == "cuda" and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def enhance(f, verbose=True):
+    """Decorate a task handler to return ``(body, status)``.
+
+    Success: ``{'result': ...}, 200`` (and the op-timing file is
+    flushed); any exception: ``{'result': 'Fail', 'call', 'exception'},
+    400``, also pushed through the notifier so the client sees the
+    failure without polling.
+    """
+
+    def run(*args, **kwargs):
+        called = _describeCall(f, args)
+        try:
+            body = {"result": f(*args, **kwargs)}
+            saveOps(config.opsPath, True)
+            if verbose:
+                log.info(called)
+            return body, 200
+        except Exception:  # the request loop must keep serving
+            log.exception(called)
+            body = {"result": "Fail", "call": called, "exception": format_exc()}
+            _notify(body)
+            return body, 400
+        finally:
+            clean()
+
+    return run
+
+
+def worker(main, taskIn, taskOut, notifier, stopEvent, isWindows):
+    """Blocking request loop over the task pipe.
+
+    ``main()`` returns the shared-memory handle and the route table;
+    each message is ``(routeName, *args)`` and the handler's
+    ``(body, status)`` is sent straight back.
+    """
+    initLogging(config.logPath)
+    mm, routes = main()
+    if isWindows:
+        context.shared, context.sharedView = mm, memoryview(mm)
+    else:
+        context.shared, context.sharedView = mm.buf.obj, mm.buf
+    context.shared.seek(0)
+    context.notifier = notifier
+    context.stopFlag = stopEvent
+    loadOps(config.opsPath)
+    while True:
+        name, *args = taskIn.recv()
+        stopEvent.clear()
+        taskOut.send(routes[name](*args))

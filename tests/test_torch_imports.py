@@ -1,5 +1,5 @@
-"""The port stands alone: no module of moephoto_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package."""
+"""The port stands alone: no module of moephoto_tpu_torch, and neither
+chip_smoke.py nor app_torch.py, imports JAX or the JAX package."""
 
 import ast
 import os
@@ -13,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "moephoto_tpu")
 
 
 def _portFiles():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "app_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "moephoto_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)  # one order in every test worker
@@ -40,7 +40,8 @@ def test_no_jax_import(path):
 def test_port_entry_modules_load_without_jax():
     code = ("import sys, moephoto_tpu_torch.cli, moephoto_tpu_torch.pipeline.steps, "
             "moephoto_tpu_torch.video.engine, moephoto_tpu_torch.models.ifrnet, moephoto_tpu_torch.models.iconvsr, "
-            "moephoto_tpu_torch.models.estrnn; "
+            "moephoto_tpu_torch.models.estrnn, moephoto_tpu_torch.runtime.server, moephoto_tpu_torch.runtime.worker, "
+            "app_torch; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'moephoto_tpu' or m.startswith('moephoto_tpu.')]; "
             "assert not bad, bad")
