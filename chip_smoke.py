@@ -161,6 +161,24 @@ Phases, each printing one JSON line:
               and one video request: 4 fusedUpHeads and 64 warp launches,
               outputs within 1 LSB of the app's, each request's time split
               into upload, worker (PNG decode and encode apart) and reply
+ 14. train    training (parallel/sharded.py's train steps, tools/train.py,
+              tools/dryrun.py), lite x2 at full width and the CLI's batch 8
+              of 64 px patches: one fp32 SGD step on the card (TF32 off)
+              against the CPU, loss and gradient, on [1, 1] and on
+              cuda:0 x [2, 2] against cpu x [2, 2]; the fine-tuning CLI on
+              the card from scratch in bf16 on seeded structured images,
+              the held-out PSNR gaining at least 3 dB, then resumed from
+              its checkpoint (no hand-written kernel launched); the trained
+              state dict in the inference module on a 1080p plane, K1
+              against the plain up path in fp32 and bf16, after the module
+              had prepared K1's weights for the seeded ones (4 K1
+              launches); dryrunMultichip(8) on the cards (cuda:0 x 8 on one),
+              its shapes and devices
+     train_timing  Adam steps in fp32 and bf16 on [1, 1] and cuda:0 x
+              [2, 2] at the CLI's defaults and at batch 32 of 128 px on
+              [1, 1]: the median step by CUDA events, LR Mpx/s, FLOP a step
+              (FlopCounterMode), TFLOP/s, peak memory, one profiled step's
+              idle share and top kernels
 Each phase's seconds go into a ``phase_seconds`` line.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -285,7 +303,8 @@ def profileOnce(fn):
     """One call of ``fn`` under the profiler: its wall ms and the device
     ms of each kernel name, largest first.  Only device-side events
     (kernels, copies) count: the operators that launch them also carry
-    device time, and counting both would count it twice."""
+    device time, and so do the device spans of annotated regions (an
+    optimizer's ``step``); counting both would count it twice."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -295,7 +314,7 @@ def profileOnce(fn):
         torch.cuda.synchronize()
         wallMs = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     return wallMs, sorted(rows, key=lambda r: -r[1])
 
 
@@ -806,16 +825,22 @@ def profiledCalls(fn, iters):
     return prof
 
 
-def lutProfile(fn, iters=ITERS):
+def lutProfile(fn, iters=ITERS, windows=3):
     """Over ``iters`` calls of ``fn`` under the profiler: the device ms of
     the AiLUT launches summed and divided by ``iters`` (as this script
     timed the kernel before: low by the share of records dropped), the
     device ms of a call (each kernel's mean a launch times its launches a
     call), the launches a call by kernel name, and the AiLUT launches
-    recorded (``iters`` when none was dropped)."""
-    prof = profiledCalls(fn, iters)
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    recorded (``iters`` when none was dropped).  A window that recorded
+    under half the calls' AiLUT launches is profiled again, up to
+    ``windows`` times (the profiler has dropped a whole window of them on
+    an H100)."""
+    for _ in range(windows):
+        prof = profiledCalls(fn, iters)
+        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if 2 * sum(n for k, _, n in rows if isLutKernel(k)) >= iters:
+            break
     perCall = {k[:80]: max(1, round(n / iters)) for k, _, n in rows}
     return (sum(t for k, t, _ in rows if isLutKernel(k)) / iters,
             sum(t / n * perCall[k[:80]] for k, t, n in rows), perCall,
@@ -3195,6 +3220,266 @@ def runServer(work, smi, videoFrames):
     return inproc["image"]["launches"]["fusedUpHeads"], inproc["video"]["launches"]["warp"]
 
 
+# --- training (moephoto_tpu_torch/parallel/sharded.py train steps, tools/train.py, tools/dryrun.py) ---------------
+
+TRAIN_BATCH, TRAIN_PATCH, TRAIN_SCALE, TRAIN_HALO = 8, 64, 2, 8  # tools/train.py's defaults; lite's halo
+TRAIN_IMAGES, TRAIN_SIZE = 4, 512  # synthetic structured images of tests/test_train.py, larger
+TRAIN_LR, TRAIN_STEPS, TRAIN_RESUMED = 2e-3, 200, 40  # the CLI run: from scratch, bf16, then resumed
+TRAIN_GAIN_DB = 3.0  # the held-out PSNR gain of tests/test_train.py's quality gate
+# one fp32 SGD step on the card (TF32 off) against the CPU: the loss is a mean
+# over 131072 pixels and each gradient a sum over up to as many terms, which
+# cuDNN and the CPU add in other orders (and cuDNN's backward not bit-stably)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-3  # the gradient relative to its largest |entry|, per parameter
+TRAIN_WARM, TRAIN_TIMED = 5, 30
+TRAIN_LARGE = (32, 128)  # batch, patch: launches no longer dominate
+
+
+def trainImages(work):
+    """``TRAIN_IMAGES`` training images and one held-out image of
+    ``TRAIN_SIZE`` px (tests/test_train.py's pattern: sines times cosines
+    plus seeded noise; the held-out one at another phase, noise-free)."""
+    from PIL import Image
+
+    data, hold = os.path.join(work, "train"), os.path.join(work, "train_holdout")
+    os.makedirs(data, exist_ok=True)
+    os.makedirs(hold, exist_ok=True)
+    rng = np.random.RandomState(7)
+    yy, xx = np.mgrid[0:TRAIN_SIZE, 0:TRAIN_SIZE].astype(np.float32) / TRAIN_SIZE
+    for i in range(TRAIN_IMAGES):
+        im = 0.5 + 0.3 * np.sin(8 * yy + i) * np.cos(6 * xx) + 0.1 * rng.rand(TRAIN_SIZE, TRAIN_SIZE)
+        Image.fromarray((np.clip(im, 0, 1) * 255).astype(np.uint8)).save(os.path.join(data, f"im{i}.png"))
+    im = 0.5 + 0.3 * np.sin(8 * yy + 0.7) * np.cos(6 * xx + 0.3)
+    Image.fromarray((np.clip(im, 0, 1) * 255).astype(np.uint8)).save(os.path.join(hold, "h.png"))
+    return os.path.join(data, "*.png"), os.path.join(hold, "*.png")
+
+
+def trainBatch(dataGlob, seed, batch=TRAIN_BATCH, patch=TRAIN_PATCH):
+    """One (LR, HR) batch of the CLI's sampler, numpy fp32."""
+    import glob
+
+    from moephoto_tpu_torch.tools.train import PatchSampler
+
+    return PatchSampler(sorted(glob.glob(dataGlob)), patch, TRAIN_SCALE, seed).batch(batch)
+
+
+def sgdGradient(devices, shape, sd, x, y):
+    """The loss and gradient of one fp32 ``makeShardedTrainStep`` of lite
+    x2 on a mesh of ``devices``: the step at lr 1, its update read back as
+    the gradient (fp64 on the CPU)."""
+    from moephoto_tpu_torch.models.sr import MoeNetLite2
+    from moephoto_tpu_torch.parallel.mesh import makeMesh
+    from moephoto_tpu_torch.parallel.sharded import makeShardedTrainStep
+
+    step = makeShardedTrainStep(MoeNetLite2(TRAIN_SCALE, fused=False), makeMesh(shape, devices=devices), TRAIN_HALO,
+                                TRAIN_SCALE, lr=1.0)
+    new, loss = step(sd, torch.from_numpy(x), torch.from_numpy(y))
+    return float(loss), {k: sd[k].double() - v.cpu().double() for k, v in new.items()}
+
+
+def checkTrainSteps(seed, dataGlob):
+    """Checks 1 and 2: one fp32 SGD step on the card against the CPU, on
+    [1, 1] and on cuda:0 x [2, 2] against cpu x [2, 2] (each mesh against
+    its own shape: FRM's pool is taken per padded shard)."""
+    from moephoto_tpu_torch.synth import synthLite2Params
+
+    sd = synthLite2Params(TRAIN_SCALE, seed)
+    x, y = trainBatch(dataGlob, seed)
+    out = {}
+    for shape in ([1, 1], [2, 2]):
+        n = shape[0] * shape[1]
+        cardLoss, cardGrad = sgdGradient(["cuda:0"] * n, shape, sd, x, y)
+        cpuLoss, cpuGrad = sgdGradient(["cpu"] * n, shape, sd, x, y)
+        lossErr = abs(cardLoss - cpuLoss) / cpuLoss
+        gradErr = {k: float((cardGrad[k] - g).abs().max() / g.abs().max()) for k, g in cpuGrad.items()}
+        worst = max(gradErr, key=gradErr.get)
+        if not (lossErr <= TRAIN_LOSS_RTOL and gradErr[worst] <= TRAIN_GRAD_TOL and np.isfinite(cardLoss)):
+            raise AssertionError(f"the card's SGD step on {shape} differs from the CPU's: loss {cardLoss} against "
+                                 f"{cpuLoss}, gradient of {worst} {gradErr[worst]} of its largest entry")
+        out[f"{shape[0]}x{shape[1]}"] = dict(loss_card=cardLoss, loss_cpu=cpuLoss, loss_rel_err=lossErr,
+                                            grad_worst_rel_err=gradErr[worst], grad_worst_param=worst)
+    return out
+
+
+def trainCli(argv):
+    """``tools/train.main(argv)`` with its printed lines captured."""
+    import contextlib
+    import io
+
+    from moephoto_tpu_torch.tools import train
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        params = train.main(argv)
+    return params, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def runTrainCli(work, dataGlob, holdGlob):
+    """Check 3: the fine-tuning CLI on the card, lite x2 from scratch in
+    bf16 with the held-out PSNR, then resumed from its checkpoint."""
+    out = os.path.join(work, "train_out")
+    argv = ["--data", dataGlob, "--model", "lite", "--scale", str(TRAIN_SCALE), "--lr", str(TRAIN_LR),
+            "--out", out, "--fromScratch", "--computeDtype", "bf16", "--holdout", holdGlob, "--saveEvery", "1000"]
+    first, lines, seconds = trainCli(argv + ["--steps", str(TRAIN_STEPS)])
+    psnr = {ln.split(":")[0][len("held-out PSNR "):]: float(ln.split(": ")[1].split(" dB")[0])
+            for ln in lines if ln.startswith("held-out PSNR ")}
+    if not psnr["after"] >= psnr["before"] + TRAIN_GAIN_DB:
+        raise AssertionError(f"fine-tuning gained {psnr['after'] - psnr['before']} dB held-out, want {TRAIN_GAIN_DB}")
+    if not os.path.isfile(os.path.join(out, "state", "train.pt")):
+        raise AssertionError("the CLI wrote no checkpoint")
+    total = TRAIN_STEPS + TRAIN_RESUMED
+    second, resumedLines, resumedSeconds = trainCli(argv + ["--steps", str(total), "--resume"])
+    if resumedLines[0] != f"resumed from step {TRAIN_STEPS}" or not resumedLines[2].startswith(
+            f"step {TRAIN_STEPS + 1}/{total} loss "):
+        raise AssertionError(f"resume did not continue: {resumedLines[:3]}")
+    moved = max(float((second[k] - v).abs().max()) for k, v in first.items())
+    if not moved > 0 or any(v.dtype != torch.float32 for v in second.values()):
+        raise AssertionError(f"resuming moved the weights by {moved}, dtypes {set(v.dtype for v in second.values())}")
+    return second, dict(steps=TRAIN_STEPS, resumed_to=total, psnr_db=psnr, seconds=seconds,
+                        resumed_seconds=resumedSeconds, moved_by_resume=moved, lines=lines[:2] + lines[-3:],
+                        resumed_lines=resumedLines[:3] + resumedLines[-2:])
+
+
+def trainedInference(params, seed, dataGlob):
+    """Check 4: the trained state dict in the inference MoeNetLite2 x2 on
+    the card, a 1080p luma plane through the fused path (K1) and the plain
+    up path, fp32 and bf16; the module's prepared K1 weights were built for
+    the seeded weights first, so the fused output shows they were rebuilt."""
+    import glob
+
+    from PIL import Image
+
+    from moephoto_tpu_torch.models.sr import MoeNetLite2
+    from moephoto_tpu_torch.synth import synthLite2Params
+
+    with Image.open(sorted(glob.glob(dataGlob))[0]) as img:
+        tile = np.asarray(img.convert("L"), np.float32) / 255.0
+    plane = np.tile(tile, (-(-H // tile.shape[0]), -(-W // tile.shape[1])))[:H, :W]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(plane).to("cuda", dtype)[None, :, :, None]
+        model = MoeNetLite2(TRAIN_SCALE).to("cuda", dtype).eval()
+        model.load_state_dict(synthLite2Params(TRAIN_SCALE, seed), strict=True)
+        with torch.inference_mode():
+            before = model(x).float()
+        model.load_state_dict(params, strict=True)  # an in-place write: K1's prepared weights go stale
+        with torch.inference_mode():
+            fused = model(x).float()
+            model.fused = False
+            plain = model(x).float()
+        torch.cuda.synchronize()
+        diff = (fused - plain).abs()
+        if dtype == torch.float32:
+            ok = bool((diff <= FP32_TOL).all())
+        else:
+            ok = bool((diff <= BF16_REL * plain.abs() + BF16_ABS).all())
+        moved = float((fused - before).abs().max())
+        name = str(dtype)[6:]
+        if not (ok and torch.isfinite(fused).all() and fused.shape == (1, 2 * H, 2 * W, 1) and moved > 1e-3):
+            raise AssertionError(f"trained weights through K1 ({name}): {float(diff.max())} from the plain path, "
+                                 f"moved {moved} from the seeded weights' output")
+        out[name] = dict(max_abs_err=float(diff.max()), moved_from_seeded=moved)
+        del model, x, before, fused, plain, diff
+    return out
+
+
+def runTrain(seed, work, smi):
+    """The ``train`` phase: checks 1 to 5 (see the module docstring)."""
+    from moephoto_tpu_torch.tools.dryrun import cardsFor, describe, dryrunMultichip
+
+    dataGlob, holdGlob = trainImages(work)
+    t0 = time.perf_counter()
+    steps = checkTrainSteps(seed, dataGlob)
+    stepSeconds = time.perf_counter() - t0
+    resetCounts()
+    params, cli = runTrainCli(work, dataGlob, holdGlob)
+    cliCounts = readCounts()
+    if any(cliCounts.values()):
+        raise AssertionError(f"training launched a hand-written kernel: {cliCounts}")
+    inference = trainedInference(params, seed, dataGlob)
+    counts = readCounts()
+    launches = counts["fusedUpHeads"]
+    if launches != 4:  # a fused call with the seeded and one with the trained weights, fp32 and bf16
+        raise AssertionError(f"fusedUpHeads launched {launches} times on the trained weights, want 4")
+    resetCounts()
+    t0 = time.perf_counter()
+    line = dryrunMultichip(8)  # the cards: cuda:0 x 8 on one
+    dryrunSeconds = time.perf_counter() - t0
+    dryrunCounts = readCounts()
+    want = ("infer=(4, 192, 64, 1) video=(3, 256, 256, 3) estrnn=(2, 64, 64, 3) ifrnet=(2, 1, 64, 64, 3) "
+            f"devices={describe(cardsFor(8))}")
+    loss = float(line.split(" loss=")[1].split()[0])
+    if not (line.endswith(want) and np.isfinite(loss)):
+        raise AssertionError(f"dryrun line {line!r}, want {want}")
+    emit(phase="train", gpu=smi, model="lite x2", batch=TRAIN_BATCH, patch=TRAIN_PATCH,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_tol=TRAIN_GRAD_TOL, sgd_card_vs_cpu=steps, sgd_seconds=stepSeconds,
+         cli=cli, cli_launches=cliCounts, trained_inference=inference, trained_launches=counts,
+         dryrun=line, dryrun_seconds=dryrunSeconds, dryrun_launches=dryrunCounts)
+    return launches
+
+
+def timingTrain(seed, smi, dataGlob):
+    """The ``train_timing`` phase: Adam steps of lite x2 (makeOptaxTrainStep,
+    the CLI's step) in fp32 and bf16 on [1, 1] and cuda:0 x [2, 2] at the
+    CLI's defaults, and at TRAIN_LARGE on [1, 1]: the median step by CUDA
+    events over TRAIN_TIMED steps after TRAIN_WARM, LR Mpx/s of patches,
+    FLOP a step as torch's FlopCounterMode counts one step's convolutions
+    and products (forward and backward), TFLOP/s, peak memory above what
+    earlier phases left allocated (the setting's batch, masters, Adam's
+    state and activations, FlopCounterMode's step included), and one
+    profiled step's idle share and top kernels.  On one card [2, 2] measures
+    what sharding costs, not scaling."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from moephoto_tpu_torch.models.sr import MoeNetLite2
+    from moephoto_tpu_torch.parallel.mesh import makeMesh
+    from moephoto_tpu_torch.parallel.sharded import makeOptaxTrainStep
+    from moephoto_tpu_torch.synth import synthLite2Params
+
+    settings = [(d, s, TRAIN_BATCH, TRAIN_PATCH) for s in ([1, 1], [2, 2]) for d in (torch.float32, torch.bfloat16)]
+    settings += [(d, [1, 1]) + TRAIN_LARGE for d in (torch.float32, torch.bfloat16)]
+    report = {}
+    for dtype, shape, batch, patch in settings:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()  # earlier phases' tensors: not this setting's
+        torch.cuda.reset_peak_memory_stats()
+        x, y = (torch.from_numpy(a).to("cuda") for a in trainBatch(dataGlob, seed, batch, patch))
+        masters = {k: v.to("cuda").requires_grad_() for k, v in synthLite2Params(TRAIN_SCALE, seed).items()}
+        opt = torch.optim.Adam(masters.values(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+        step = makeOptaxTrainStep(MoeNetLite2(TRAIN_SCALE, fused=False),
+                                  makeMesh(shape, devices=["cuda:0"] * (shape[0] * shape[1])), opt, TRAIN_HALO,
+                                  TRAIN_SCALE, computeDtype=None if dtype == torch.float32 else dtype)
+        with FlopCounterMode(display=False) as counter:
+            step(masters, x, y)
+        flop = counter.get_total_flops()
+        for _ in range(TRAIN_WARM):
+            step(masters, x, y)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(TRAIN_TIMED)]
+        for start, end in events:
+            start.record()
+            _, loss = step(masters, x, y)
+            end.record()
+        torch.cuda.synchronize()
+        ms = sorted(s.elapsed_time(e) for s, e in events)
+        median = ms[len(ms) // 2]
+        peak = torch.cuda.max_memory_allocated() - resident  # batch, masters, Adam's state, activations
+        wallMs, rows = profileOnce(lambda: step(masters, x, y))
+        deviceMs = sum(t for _, t in rows)
+        name = f"{str(dtype)[6:]}_{shape[0]}x{shape[1]}_b{batch}_p{patch}"
+        report[name] = dict(ms_per_step=median, ms_min=ms[0], ms_max=ms[-1], lr_mpx_per_s=batch * patch * patch / median / 1e3,
+                            gflop_per_step=flop / 1e9, tflops=flop / median / 1e9, peak_memory_mib=peak / 2**20,
+                            resident_mib=resident / 2**20,
+                            loss=float(loss), profiled_wall_ms=wallMs, profiled_device_ms=deviceMs,
+                            device_idle_share=(1 - deviceMs / wallMs) if wallMs else None,
+                            top_kernels=[{"name": k[:80], "ms": t} for k, t in rows[:6]])
+        del x, y, masters, opt, step
+        torch.cuda.empty_cache()
+    emit(phase="train_timing", gpu=smi, optimizer="Adam", warmup=TRAIN_WARM, timed=TRAIN_TIMED,
+         note="cuda:0 x [2, 2] is four shards on one card: the cost of sharding, not scaling", settings=report)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3328,11 +3613,16 @@ def main(argv=None) -> int:
         serverLaunches = runServer(work, smi, videoFrames)
         del videoFrames
         mark("server")
+        trainLaunches = runTrain(args.seed, work, smi)
+        mark("train")
+        timingTrain(args.seed, smi, os.path.join(work, "train", "*.png"))
+        mark("train_timing")
     emit(phase="phase_seconds", seconds=phaseSeconds, total=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
         "replaces": "moephoto_tpu/ops/fusedup.py:93", "launches": launches, "launches_server": serverLaunches[0],
+        "launches_train": trainLaunches,
         "max_abs_err": errs["nUps2_c48_M1966080_bfloat16"], "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"], "library_ms": None, "variant": kt["variant"],
     }, {

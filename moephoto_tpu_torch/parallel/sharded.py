@@ -21,6 +21,11 @@ rows that do not divide); :data:`stats` counts every such gather, every
 host read and the bytes moved between shards.  Under
 :func:`checkingSegments` every segment that runs sharded runs whole as
 well, and the segments whose outputs differ are counted.
+
+Training runs on the same shards: :func:`makeShardedLoss` is the L1 loss
+over a (dp, sp) mesh, with autograd through the halo copies and the
+per-device casts of the parameters, and :func:`makeShardedTrainStep` and
+:func:`makeOptaxTrainStep` step on its gradient.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from fractions import Fraction
 from typing import Callable, List, Optional, Sequence
 
 import torch
+
+from moephoto_tpu_torch.models.api import fullFp32
 
 # counters of the sharded paths: "gathers" (segments run gathered),
 # "hostReads" (device -> host reads that size a halo), "haloBytes" (bytes
@@ -304,3 +311,105 @@ def shardedTiledForward(apply: Callable, mesh, halo: int, scale: int = 1) -> Cal
         return torch.cat(rowsOut, 0)
 
     return forward
+
+
+def makeShardedLoss(model: torch.nn.Module, mesh, halo: int, scale: int = 1,
+                    computeDtype: Optional[torch.dtype] = None) -> Callable:
+    """The L1 training loss of ``model`` over a (dp, sp) mesh: the batch
+    split over ``dp``, the rows over ``sp``, each shard reflect-padded by
+    ``haloExchange`` and run on its device through
+    ``torch.func.functional_call`` with the parameters cast there (in
+    ``computeDtype`` where given), ``halo * scale`` rows cropped, and the
+    fp32 mean of |pred - y| taken on its rows.  The loss is the mean of the
+    shards' losses, as the JAX package's ``psum / n``, on the mesh's first
+    device.
+
+    Returns ``loss(params, x, y)``: ``params`` maps the model's parameter
+    names to tensors, x is (B, H, W, C), y (B, H * scale, W * scale, C).
+    Every cast is differentiable, so a backward pass sums each shard's
+    gradient onto ``params``: the gradient is that of the loss returned,
+    the mean of the shards' gradients."""
+    grid = mesh.devices.reshape(mesh.devices.shape[0], -1)
+    dp, sp = grid.shape
+    home, hs = grid[0, 0], halo * scale
+
+    def loss(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % dp or x.shape[1] % sp:
+            raise ValueError(f"batch {x.shape[0]} and rows {x.shape[1]} do not split over dp x sp = {dp} x {sp}")
+        per, onDevice, total = x.shape[0] // dp, {}, 0.0
+        for i in range(dp):
+            xs = RowShards.split(x[i * per : (i + 1) * per], list(grid[i]), 1)
+            ys = RowShards.split(y[i * per : (i + 1) * per], list(grid[i]), 1, bounds=scaleBounds(xs.bounds, scale))
+            for padded, target in zip(haloExchange(xs, halo, "reflect"), ys.parts):
+                dev = padded.device
+                if dev not in onDevice:  # one cast a device: autograd sums its uses
+                    onDevice[dev] = {k: p.to(dev, computeDtype or p.dtype) for k, p in params.items()}
+                if computeDtype is not None:
+                    padded = padded.to(computeDtype)
+                pred = torch.func.functional_call(model, onDevice[dev], (padded,))
+                pred = pred.narrow(1, hs, pred.shape[1] - 2 * hs)
+                total = total + (pred.float() - target.float()).abs().mean().to(home)
+        return total / (dp * sp)
+
+    return loss
+
+
+def _precisionOf(computeDtype):
+    # fp32 training is true fp32 on the card: cuDNN would take TF32 otherwise
+    return fullFp32() if computeDtype is None else contextlib.nullcontext()
+
+
+def makeShardedTrainStep(model: torch.nn.Module, mesh, halo: int, scale: int = 1, lr: float = 1e-4) -> Callable:
+    """One SGD step of :func:`makeShardedLoss` (the JAX package's
+    ``makeShardedTrainStep``): ``step(params, x, y) -> (newParams, loss)``
+    with p <- (p32 - lr g32) in each parameter's own dtype, the new
+    parameters on the mesh's first device.  g is the gradient of the loss
+    returned, which the docstring of the JAX step promises ("gradients
+    all-reduced over both mesh axes"); the JAX step applies shard (0, 0)'s
+    own gradient instead (ROADMAP Queue C)."""
+    lossOf = makeShardedLoss(model, mesh, halo, scale)
+    home = mesh.flat[0]
+
+    def step(params, x: torch.Tensor, y: torch.Tensor):
+        masters = {k: p.detach().to(home, torch.float32).requires_grad_() for k, p in params.items()}
+        with _precisionOf(None):
+            loss = lossOf(masters, x, y)
+            grads = torch.autograd.grad(loss, list(masters.values()))
+        new = {k: (m.detach() - lr * g).to(params[k].dtype) for (k, m), g in zip(masters.items(), grads)}
+        return new, loss.detach()
+
+    return step
+
+
+def makeOptaxTrainStep(model: torch.nn.Module, mesh, optimizer: torch.optim.Optimizer, halo: int, scale: int = 1,
+                       computeDtype: Optional[torch.dtype] = None) -> Callable:
+    """:func:`makeShardedTrainStep` with a ``torch.optim`` optimizer (the
+    JAX package's ``makeOptaxTrainStep`` with an optax one; the fine-tuning
+    CLI passes ``torch.optim.Adam``, ``optax.adam``'s formula).  Returns
+    ``step(params, x, y) -> (params, loss)``: ``params`` are the fp32
+    masters that ``optimizer`` holds, on the mesh's first device, updated
+    in place.
+
+    ``computeDtype=torch.bfloat16`` is mixed precision: masters and
+    optimizer state stay fp32; each shard's forward and backward run in
+    bf16 on the parameters cast there (every weight follows the input, as
+    the JAX package's convs cast theirs), FRM's pool sums in fp32, the loss
+    is reduced in fp32, and the gradients reach the masters through the
+    casts in fp32.  Biases are cast too, as in the port's bf16 inference:
+    MoeNet_lite2's up stages round theirs to bf16 where JAX adds them in
+    fp32.  The JAX step needs ``trainAccum`` to drop its convs'
+    fp32 output pin, because JAX's conv transpose rule cannot type a bf16 x
+    fp32 operand mix; here every conv's operands share one dtype, so
+    nothing stands in for it.  With ``computeDtype=None`` the step runs in
+    true fp32 (``models.api.fullFp32``)."""
+    lossOf = makeShardedLoss(model, mesh, halo, scale, computeDtype)
+
+    def step(params, x: torch.Tensor, y: torch.Tensor):
+        optimizer.zero_grad(set_to_none=True)
+        with _precisionOf(computeDtype):
+            loss = lossOf(params, x, y)
+            loss.backward()
+        optimizer.step()
+        return params, loss.detach()
+
+    return step

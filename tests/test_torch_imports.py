@@ -41,6 +41,7 @@ def test_port_entry_modules_load_without_jax():
     code = ("import sys, moephoto_tpu_torch.cli, moephoto_tpu_torch.pipeline.steps, "
             "moephoto_tpu_torch.video.engine, moephoto_tpu_torch.models.ifrnet, moephoto_tpu_torch.models.iconvsr, "
             "moephoto_tpu_torch.models.estrnn, moephoto_tpu_torch.runtime.server, moephoto_tpu_torch.runtime.worker, "
+            "moephoto_tpu_torch.tools.train, moephoto_tpu_torch.tools.dryrun, moephoto_tpu_torch.parallel.sharded, "
             "app_torch; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'moephoto_tpu' or m.startswith('moephoto_tpu.')]; "
