@@ -179,6 +179,21 @@ Phases, each printing one JSON line:
               [1, 1]: the median step by CUDA events, LR Mpx/s, FLOP a step
               (FlopCounterMode), TFLOP/s, peak memory, one profiled step's
               idle share and top kernels
+ 15. deploy   the deployment tools (tools/export.py, package.py,
+              calibrate.py): lite4 at its 1080p tile shape (256x256, bf16)
+              and AiLUT_sRGB_3 at 1080p (fp32) exported with torch.export on
+              the card, one moephoto_torch op node each (K1, K4), each
+              loaded in a fresh process through loadExported and held
+              bit-equal to the eager module on a seeded input, K1 and K4
+              launched there; the packager with --models lite4 into the work
+              directory (four prebuilt kernel libraries under build/), the
+              tree's cli image lite x4 on the main phase's PNG from its root
+              with nvcc off PATH and CUDA_HOME missing, 0 LSB from the main
+              phase and no new build file; calibrate lite4 at 1080p over
+              tiles 192/256/384 x batches 2/4/8 (Mpx/s, peak MiB, best);
+              the main path's Mpx/s and K1's and K4's ms beside PERF.md's, and
+              the host microseconds the registered ops add to a launch (K1
+              at 64 rows, K4 at 8x8, op against the direct launch, in turns)
 Each phase's seconds go into a ``phase_seconds`` line.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -509,7 +524,8 @@ def timing(seed, gpu):
          bf16_cuda_core_ms=msOld, bf16_plain_ms=plainMs, bf16_bound_ms=bound,
          bound_by=boundBy, bf16_tflops=flop / (ms * 1e-3) / 1e12, bf16_share_of_bound=bound / ms,
          fp32_ms=ms32, fp32_variant="cuda_core", fp32_bound_ms_cuda_cores=bound32)
-    return dict(ms=ms, plain_ms=plainMs, bound_ms=bound, bound_by=boundBy, variant="wgmma")
+    return dict(ms=ms, plain_ms=plainMs, bound_ms=bound, bound_by=boundBy, variant="wgmma",
+                mpx_per_s=(H * W / 1e6) / (msImage / 1e3))
 
 
 def resetCounts():
@@ -3480,6 +3496,196 @@ def timingTrain(seed, smi, dataGlob):
     return report
 
 
+# --- the deploy phase: export, package, calibrate ------------------------------
+
+# each exported model: the one op node its program must hold on the card, and the wrapper whose count it launches
+EXPORT_NODES = {"lite4": ("moephoto_torch.fused_up_heads.default", "fusedUpHeads"),
+                "AiLUT_sRGB_3": ("moephoto_torch.ailut_transform.default", "ailutTransform")}
+CALIBRATE = ["lite4", "--tiles", "192,256,384", "--batches", "2,4,8", "--size", f"{H}x{W}"]
+# the main path as PERF.md records it before the ops were registered (chip_smoke.py on an H100 SXM at 700 W):
+# lite x4 1080p Mpx/s over runs, K1's and K4's ms a launch
+EARLIER = {"lite_x4_mpx_per_s": [60.9, 65.0], "fusedUpHeads_ms": 1.285, "ailutTransform_ms": 0.0533}
+OP_CALLS = 500  # launches a side when the registered op's host cost is timed
+# run in a fresh process: argv root, program, input, output; prints the kernels' launch counts
+LOAD_EXPORTED = """
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from moephoto_tpu_torch.ops import fusedup, lut
+from moephoto_tpu_torch.tools.export import loadExported
+program = loadExported(sys.argv[2])
+y = program(torch.load(sys.argv[3]).cuda())
+torch.cuda.synchronize()
+torch.save(y.cpu(), sys.argv[4])
+print(json.dumps({"fusedUpHeads": fusedup.fusedUpHeads.launches, "ailutTransform": lut.ailutTransform.launches,
+                  "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}))
+"""
+
+
+def runExport(seed, work):
+    """lite4 at the tile input shape its TileSpec gives the tiler for a 1080p
+    image and AiLUT_sRGB_3 at 1080p, exported through tools/export.py on the
+    card (bf16 and fp32, as the registry runs them): one op node each; each
+    file loaded in a fresh process through loadExported (default TF32 flags
+    there) on a seeded input, its output bit-equal to the eager module's on
+    the same input, and the process's K1 and K4 launches above 0."""
+    from moephoto_tpu_torch.engine.tiling import paddedExtent
+    from moephoto_tpu_torch.pipeline import registry
+    from moephoto_tpu_torch.tools import export
+
+    spec = registry.SR_REGISTRY["lite4"]["spec"]
+    tile = lambda n: spec.tile if n > spec.tile else paddedExtent(n, spec.tile, spec.pad, spec.align)  # noqa: E731
+    shapes = {"lite4": (tile(H), tile(W)), "AiLUT_sRGB_3": (H, W)}
+    report, procs, eager = {}, {}, {}
+    try:
+        for i, (name, (h, w)) in enumerate(shapes.items()):
+            resetCounts()
+            t0 = time.perf_counter()
+            exported, path = export.exportModel(name, os.path.join(work, f"{name}.pt2"), h, w)
+            seconds = time.perf_counter() - t0
+            nodes = [str(n.target) for n in exported.graph.nodes
+                     if n.op == "call_function" and str(n.target).startswith("moephoto_torch.")]
+            if nodes != [EXPORT_NODES[name][0]]:
+                raise AssertionError(f"{name}: the program holds {nodes}, want one {EXPORT_NODES[name][0]}")
+            entry = export.lookup(name)
+            g = torch.Generator().manual_seed(seed + 40 + i)
+            x = torch.rand((1, h, w, 1 if entry["channelSplit"] else 3), generator=g)
+            xPath, yPath = os.path.join(work, f"{name}_x.pt"), os.path.join(work, f"{name}_y.pt")
+            torch.save(x, xPath)
+            ex = registry.buildExec(entry)
+            with torch.no_grad():
+                eager[name] = export.Program(ex.model, ex.dtype)(x.cuda()).cpu()
+            procs[name] = (subprocess.Popen([sys.executable, "-c", LOAD_EXPORTED, ROOT, path, xPath, yPath],
+                                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), yPath)
+            report[name] = {"input": list(x.shape), "dtype": str(ex.dtype), "export_seconds": seconds,
+                            "bytes": os.path.getsize(path), "op_nodes": nodes, "constants": len(exported.constants),
+                            "eager_launches": readCounts()}  # the export's eager call, then the reference's
+        t0 = time.perf_counter()
+        for name, (proc, yPath) in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"loading the exported {name} failed:\n{err[-3000:]}")
+            counts = json.loads(out.strip().splitlines()[-1])
+            got, want = torch.load(yPath), eager[name]
+            if got.shape != want.shape or not torch.equal(got, want) or not counts[EXPORT_NODES[name][1]] > 0:
+                diff = float((got - want).abs().max()) if got.shape == want.shape else None
+                raise AssertionError(f"{name}: loaded program {tuple(got.shape)}, max |diff| {diff} from eager, "
+                                     f"launches {counts}")
+            report[name].update(loaded_launches=counts, bit_equal=True, output_mean=float(got.mean()))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit(phase="export", load_seconds=time.perf_counter() - t0, models=report)
+    return {wrapper: report[name]["loaded_launches"][wrapper] for name, (_, wrapper) in EXPORT_NODES.items()}
+
+
+def runPackage(work):
+    """tools/package.py --models lite4 into the work directory, then the
+    tree's ``python -m moephoto_tpu_torch.cli image`` on the main phase's
+    1080p PNG with lite x4 from the tree's root, nvcc off PATH and CUDA_HOME
+    at a missing directory: its PNG 0 LSB from the main phase's, and no new
+    file in the tree's build/."""
+    import shutil
+
+    from PIL import Image
+
+    from moephoto_tpu_torch.tools import package
+
+    tree = os.path.join(work, "tree")
+    t0 = time.perf_counter()
+    result = package.main(["--out", tree, "--models", "lite4"])
+    packSeconds = time.perf_counter() - t0
+    with open(os.path.join(tree, "manifest.json")) as fp:
+        man = json.load(fp)
+    build = os.path.join(tree, "build")
+    before = sorted(os.listdir(build))
+    if before != sorted(os.path.basename(k["library"]) for k in man["kernels"]) or len(before) != 4:
+        raise AssertionError(f"the tree's build/ holds {before}, the manifest {man['kernels']}")
+    os.makedirs(os.path.join(tree, "model", "lite"))
+    shutil.copy2(os.path.join(work, "lite", "model_4.pth"), os.path.join(tree, "model", "lite", "model_4.pth"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PATH"] = os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                                  if not os.path.exists(os.path.join(d, "nvcc")))
+    env["CUDA_HOME"] = os.path.join(work, "no-cuda-toolkit")
+    if shutil.which("nvcc", path=env["PATH"]):
+        raise AssertionError("nvcc is still on PATH")
+    dst = os.path.join(work, "tree_out.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "moephoto_tpu_torch.cli", "image", os.path.join(work, "in.png"), dst,
+                           "--steps", json.dumps(STEPS)], cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+    cliSeconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the tree's cli failed:\n{proc.stderr[-3000:]}")
+    after = sorted(os.listdir(build))
+    with Image.open(dst) as a, Image.open(os.path.join(work, "out.png")) as b:
+        lsb = lsbApart(np.asarray(a), np.asarray(b))
+    if lsb != 0 or after != before:
+        raise AssertionError(f"the tree's output is {lsb} LSB from the main phase's; build/ {before} -> {after}")
+    emit(phase="package", result=result, manifest=man, package_seconds=packSeconds, cli_seconds=cliSeconds,
+         lsb_from_main=lsb, build_files=after, nvcc_on_path=False, cuda_home=env["CUDA_HOME"])
+
+
+def runCalibrate(smi):
+    """tools/calibrate.py on lite4 at 1080p over tiles 192, 256, 384 x
+    batches 2, 4, 8: nine points and a best (its own lines, then this)."""
+    from moephoto_tpu_torch.tools import calibrate
+
+    t0 = time.perf_counter()
+    results = calibrate.main(CALIBRATE)
+    if len(results) != 9:
+        raise AssertionError(f"calibration measured {len(results)} points, want 9")
+    best = max(results, key=lambda r: r["mpx_per_s"])
+    emit(phase="calibrate", gpu=smi, argv=CALIBRATE, seconds=time.perf_counter() - t0, points=results, best=best)
+
+
+def hostUs(fn, n=OP_CALLS):
+    """Microseconds of wall time a call over ``n`` calls of ``fn`` on work
+    too small to keep the card busy: what the host spends on a launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def opCost(seed):
+    """The host time the registered ops add to a launch: K1 (64 rows, the
+    wgmma instance) and K4 (8x8 px) through the op against the same launch
+    function called directly, in turns op, direct, direct, op."""
+    from moephoto_tpu_torch.ops import fusedup, lut
+
+    params, res, im, nUps = upCase(UPSCALE, 1, 64, torch.bfloat16, seed)
+    up = fusedup.prepare(params, nUps, torch.bfloat16, "cuda")
+    img, table, vertices = lutCase(seed, 1, 8, 8, 0.0, 1.0)
+    args = {"fusedUpHeads": (res, im, list(up.tensors), nUps, up.cout, up.instance, up.slope01),
+            "ailutTransform": (img, table, vertices)}
+    calls = {"fusedUpHeads": (lambda: torch.ops.moephoto_torch.fused_up_heads(*args["fusedUpHeads"]),
+                              lambda: fusedup._launch(*args["fusedUpHeads"])),
+             "ailutTransform": (lambda: torch.ops.moephoto_torch.ailut_transform(*args["ailutTransform"]),
+                                lambda: lut._launch(lut.ailutTransform, *args["ailutTransform"]))}
+    report = {}
+    for name, (op, direct) in calls.items():
+        a, b, c, d = hostUs(op), hostUs(direct), hostUs(direct), hostUs(op)
+        report[name] = {"op_us": [a, d], "direct_us": [b, c], "op_cost_us": (a + d - b - c) / 2}
+    return report
+
+
+def runDeploy(seed, work, smi, kt, lt):
+    """The ``deploy`` phase: export, package, calibrate; then the main
+    path's figures of this run beside PERF.md's, and the host time the
+    registered ops add to a launch."""
+    launches = runExport(seed, work)
+    runPackage(work)
+    runCalibrate(smi)
+    now = {"lite_x4_mpx_per_s": kt["mpx_per_s"], "fusedUpHeads_ms": kt["ms"], "ailutTransform_ms": lt["ms"]}
+    emit(phase="deploy_main", gpu=smi, this_run=now, perf_md=EARLIER, op_host_cost=opCost(seed), calls=OP_CALLS,
+         note="K1 and K4 launch through their registered ops in this run; PERF.md's figures are from runs before")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3617,17 +3823,20 @@ def main(argv=None) -> int:
         mark("train")
         timingTrain(args.seed, smi, os.path.join(work, "train", "*.png"))
         mark("train_timing")
+        exportLaunches = runDeploy(args.seed, work, smi, kt, lt)
+        mark("deploy")
     emit(phase="phase_seconds", seconds=phaseSeconds, total=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [{
         "name": "fusedUpHeads", "route": "cuda", "source": "moephoto_tpu_torch/csrc/fusedup.cu",
         "replaces": "moephoto_tpu/ops/fusedup.py:93", "launches": launches, "launches_server": serverLaunches[0],
-        "launches_train": trainLaunches,
+        "launches_train": trainLaunches, "launches_export": exportLaunches["fusedUpHeads"],
         "max_abs_err": errs["nUps2_c48_M1966080_bfloat16"], "ms": kt["ms"], "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"], "library_ms": None, "variant": kt["variant"],
     }, {
         "name": "ailutTransform", "route": "cuda", "source": "moephoto_tpu_torch/csrc/ailut.cu",
         "replaces": "moephoto_tpu/ops/lutkernel.py:185", "launches": lutLaunches,
+        "launches_export": exportLaunches["ailutTransform"],
         "max_abs_err": lutErr, "ms": lt["ms"], "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"], "library_ms": None, "cold_ms": lt["cold_ms"],
     }, {

@@ -91,10 +91,18 @@ class MoeNetLite2(nn.Module):
         """What :func:`fusedUpHeads` reads, made from this module's up
         stages and heads once for rows of ``dtype`` on ``device`` and kept
         on the module; ``load_state_dict``, ``to`` and any in-place write
-        to one of those parameters make the next call build it anew."""
+        to one of those parameters make the next call build it anew.  Under
+        ``torch.export`` the module must have run once on the card before
+        (``tools/export.py`` makes that call), so that ``forward`` traces
+        to one ``moephoto_torch::fused_up_heads`` node."""
         params = {k: v for k, v in self.named_parameters() if k.startswith(("ures.", "uim.", "convt_R1", "convt_I1"))}
-        return self._upCache.get((dtype, torch.device(device)), list(params.values()),
-                                 lambda: prepare(params, self.nUps, dtype, device))
+        key = (dtype, torch.device(device))
+        if torch.compiler.is_compiling():
+            # traced (torch.export): the parameters are fake tensors, with no values to prepare from.  The
+            # plain version (CPU) reads them as they are; the kernel reads what an eager call prepared, which
+            # the trace takes in as constants
+            return params if key[1].type == "cpu" else self._upCache.built(key)
+        return self._upCache.get(key, list(params.values()), lambda: prepare(params, self.nUps, dtype, device))
 
     @staticmethod
     def _upStage(stage: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
@@ -126,8 +134,11 @@ class MoeNetLite2(nn.Module):
         res = res.permute(0, 2, 3, 1)  # NHWC again
         im = im.permute(0, 2, 3, 1)
         if self.fused:
+            # the rows are contiguous on the card already; under torch.export the traced strides of the trunk's
+            # output can differ from cuDNN's, and there the program copies them instead
             flat = fusedUpHeads(
-                self.upWeights(res.dtype, res.device), res.reshape(-1, c), im.reshape(-1, c), self.nUps
+                self.upWeights(res.dtype, res.device), res.reshape(-1, c).contiguous(), im.reshape(-1, c).contiguous(),
+                self.nUps,
             )
             hr = flat.reshape((b, h, w) + (2, 2) * self.nUps + (-1,))
             return interleaveNested(hr, self.nUps)

@@ -31,6 +31,14 @@ class PrepCache:
             self._store[key] = hit
         return hit[1]
 
+    def built(self, key):
+        """What :meth:`get` last built for ``key``, its stamp unchecked: for a
+        trace (``torch.export``), whose fake tensors have no storage to stamp
+        and no values to build from.  Raises when nothing was built."""
+        if key not in self._store:
+            raise LookupError(f"nothing prepared for {key}: run the module once before tracing it")
+        return self._store[key][1]
+
     def clear(self):
         self._store.clear()
 

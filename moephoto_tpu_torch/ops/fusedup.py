@@ -9,7 +9,12 @@ they run) and ``mma`` (mma.sync; bf16, c = 96: packed) run the stage products
 on the tensor cores, ``cuda_core`` on the fp32 CUDA cores (fp32, and any
 other c that is a multiple of 4); :func:`pickInstance` chooses.
 On a CPU tensor the wrapper runs :func:`fusedUpHeadsPlain`, the same
-arithmetic in torch ops with the same rounding points.
+arithmetic in torch ops with the same rounding points.  On the card it
+launches through the op ``moephoto_torch::fused_up_heads``
+(``torch.library.custom_op``; its fake gives the output's shape and dtype),
+so that an eager call, the app and a program exported with
+``torch.export`` (``tools/export.py``) share one launch site and the
+launch count counts real launches only.
 
 What a kernel reads (stacked or packed weights, biases, slopes, head
 rows) is an :class:`UpWeights`, made by :func:`prepare` once for a
@@ -324,9 +329,12 @@ def fusedUpHeads(params, res: torch.Tensor, im: torch.Tensor, nUps: int,
     (``ures.i.*``, ``uim.i.*``, ``convt_R1``, ``convt_I1``), torch layout,
     or is an :class:`UpWeights` made from them by :func:`prepare` for these
     rows' dtype and device.  CPU tensors take :func:`fusedUpHeadsPlain`;
-    CUDA tensors launch a kernel or raise.  ``instance`` may force ``"cuda_core"``, which takes every
+    CUDA tensors launch a kernel through the registered op
+    ``moephoto_torch::fused_up_heads`` or raise.  ``instance`` may force ``"cuda_core"``, which takes every
     shape, when ``params`` is a
     dictionary; ``fusedUpHeads.lastInstance`` names what the last launch ran.
+    Under ``torch.export`` the checks run on the traced rows and the call
+    becomes one node of that op; ``params`` must then be prepared already.
     """
     prepared = params if isinstance(params, UpWeights) else None
     if res.device.type == "cpu" and im.device.type == "cpu":
@@ -338,7 +346,7 @@ def fusedUpHeads(params, res: torch.Tensor, im: torch.Tensor, nUps: int,
     if res.ndim != 2 or im.shape != res.shape:
         raise ValueError(f"fusedUpHeads: shapes {tuple(res.shape)} and {tuple(im.shape)}")
     if not (res.is_contiguous() and im.is_contiguous()):
-        raise ValueError("fusedUpHeads takes contiguous (M, c) rows")
+        raise ValueError(f"fusedUpHeads takes contiguous (M, c) rows, got strides {res.stride()} and {im.stride()}")
     if nUps not in (1, 2, 3):
         raise ValueError(f"fusedUpHeads: nUps={nUps} not in 1..3")
     M, c = res.shape
@@ -351,31 +359,57 @@ def fusedUpHeads(params, res: torch.Tensor, im: torch.Tensor, nUps: int,
     if (prepared.nUps, prepared.dtype, prepared.device, prepared.c) != (nUps, res.dtype, res.device, c):
         raise ValueError(f"fusedUpHeads: weights prepared for nUps={prepared.nUps}, {prepared.dtype} on "
                          f"{prepared.device}, c={prepared.c}; rows are nUps={nUps}, {res.dtype} on {res.device}, c={c}")
-    cout = prepared.cout
-    out = torch.empty((M, (4**nUps) * cout), dtype=res.dtype, device=res.device)
-    if M == 0:
-        return out
-    # the tensor-core instances read rows in 4-byte pairs and store 16 bytes
-    res, im = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (res, im))
-    lib = _library()
-    stream = torch.cuda.current_stream(res.device).cuda_stream
-    weights = [t.data_ptr() for t in prepared.tensors]
-    with torch.cuda.device(res.device):  # the launch goes to the tensors' card, on its stream
-        if prepared.instance == "wgmma":
-            err = lib.fusedUpHeadsBF16Wgmma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *weights,
-                                            int(prepared.slope01), out.data_ptr(), stream)
-        elif prepared.instance == "mma":
-            err = lib.fusedUpHeadsBF16Mma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *weights,
-                                          int(prepared.slope01), out.data_ptr(), stream)
-        else:
-            fn = lib.fusedUpHeadsBF16 if res.dtype == torch.bfloat16 else lib.fusedUpHeadsF32
-            err = fn(res.data_ptr(), im.data_ptr(), M, c, nUps, cout, *weights, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fusedUpHeads launch failed: {lib.fusedUpHeadsErrorString(err).decode()}")
-    fusedUpHeads.launches += 1
-    fusedUpHeads.lastInstance = prepared.instance
-    return out
+    return torch.ops.moephoto_torch.fused_up_heads(res, im, list(prepared.tensors), nUps, prepared.cout,
+                                                    prepared.instance, prepared.slope01)
 
 
 fusedUpHeads.launches = 0
 fusedUpHeads.lastInstance = None
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous and starts on 16 bytes, else a fresh copy:
+    the tensor-core instances read rows in 4-byte pairs and store 16 bytes,
+    and the kernels read head rows as float4 (a loaded program's constants
+    were not allocated by :func:`prepare`)."""
+    return t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(res: torch.Tensor, im: torch.Tensor, weights: List[torch.Tensor], nUps: int, cout: int,
+            instance: str, slope01: bool) -> torch.Tensor:
+    """The launch behind :func:`fusedUpHeads` (registered below as the op),
+    checked rows and the :attr:`UpWeights.tensors` of ``instance`` in;
+    counts the launch."""
+    M, c = res.shape
+    out = torch.empty((M, (4**nUps) * cout), dtype=res.dtype, device=res.device)
+    if M == 0:
+        return out
+    res, im = _aligned(res), _aligned(im)
+    weights = [_aligned(t) for t in weights]
+    lib = _library()
+    stream = torch.cuda.current_stream(res.device).cuda_stream
+    ptrs = [t.data_ptr() for t in weights]
+    with torch.cuda.device(res.device):  # the launch goes to the tensors' card, on its stream
+        if instance == "wgmma":
+            err = lib.fusedUpHeadsBF16Wgmma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *ptrs,
+                                            int(slope01), out.data_ptr(), stream)
+        elif instance == "mma":
+            err = lib.fusedUpHeadsBF16Mma(res.data_ptr(), im.data_ptr(), M, nUps, cout, *ptrs,
+                                          int(slope01), out.data_ptr(), stream)
+        else:
+            fn = lib.fusedUpHeadsBF16 if res.dtype == torch.bfloat16 else lib.fusedUpHeadsF32
+            err = fn(res.data_ptr(), im.data_ptr(), M, c, nUps, cout, *ptrs, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fusedUpHeads launch failed: {lib.fusedUpHeadsErrorString(err).decode()}")
+    fusedUpHeads.launches += 1
+    fusedUpHeads.lastInstance = instance
+    return out
+
+
+_fusedUpHeadsOp = torch.library.custom_op("moephoto_torch::fused_up_heads", mutates_args=(),
+                                          device_types="cuda")(_launch)
+
+
+@_fusedUpHeadsOp.register_fake
+def _fusedUpHeadsFake(res, im, weights, nUps, cout, instance, slope01):
+    return res.new_empty((res.shape[0], (4**nUps) * cout))

@@ -20,9 +20,14 @@ lo > hi gives hi), and then does exactly the lookup above.  Inside
 [lo, hi] the two functions agree; outside, this one holds the edge value
 where :func:`ailutTransform` extrapolates.  Same kernel source, its own
 entry points, plain version (:func:`ailutTransformClampedPlain`) and
-launch count.  Vertices are finite and strictly increasing: the TPU body
-divides by v[i] - v[i-1] with no epsilon and gives NaN on equal
-neighbours, where this lookup stays finite.
+launch count.  On the card each launches through its registered op,
+``moephoto_torch::ailut_transform`` and
+``moephoto_torch::ailut_transform_clamped`` (``torch.library.custom_op``,
+with fakes for tracing), so that a program exported with ``torch.export``
+holds one node for the lookup and counts real launches only.  Vertices
+are finite and strictly increasing: the TPU body divides by v[i] - v[i-1]
+with no epsilon and gives NaN on equal neighbours, where this lookup
+stays finite.
 
 Semantics (the reference kernel and the JAX package's XLA transform):
 bin = clip(#{v < x} - 1, 0, D - 2), fraction (x - v0) / (v1 - v0 + 1e-10)
@@ -125,8 +130,12 @@ def _library() -> ctypes.CDLL:
 
 
 def _onCard(name: str, img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
-    """Check the tensors and launch the entry point ``name`` + F32/BF16;
-    raises on anything the kernel does not take."""
+    """Check the tensors and launch the entry point ``name`` + F32/BF16
+    through its registered op (``moephoto_torch::ailut_transform`` or
+    ``moephoto_torch::ailut_transform_clamped``); raises on anything the
+    kernel does not take.  The checks read only shapes, types and devices,
+    so they run as they are under ``torch.export``, where the call becomes
+    one node of the op."""
     tensors = (img, lut, vertices)
     if not (img.is_cuda and lut.device == img.device and vertices.device == img.device):
         raise ValueError(f"{name}: img on {img.device}, lut on {lut.device}, "
@@ -139,13 +148,23 @@ def _onCard(name: str, img: torch.Tensor, lut: torch.Tensor, vertices: torch.Ten
         raise ValueError(f"{name} takes contiguous tensors")
     if img.ndim != 4 or img.shape[-1] != 3:
         raise ValueError(f"{name}: image shape {tuple(img.shape)}, want (B, H, W, 3)")
-    B, H, W, _ = img.shape
+    B = img.shape[0]
     D = lut.shape[-1]
     if lut.shape != (B, 3, D, D, D) or vertices.shape != (B, 3, D):
         raise ValueError(f"{name}: lut {tuple(lut.shape)}, vertices {tuple(vertices.shape)} "
                          f"for a batch of {B}")
     if not 2 <= D <= MAX_D:
         raise ValueError(f"{name}: D={D} not in 2..{MAX_D}")
+    return _OPS[name](img, lut, vertices)
+
+
+def _launch(wrapper, img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    """The launch behind the op of ``wrapper`` (entry point
+    ``wrapper.__name__`` + F32/BF16), on tensors :func:`_onCard` checked;
+    counts the launch on ``wrapper``."""
+    name = wrapper.__name__
+    B, H, W, _ = img.shape
+    D = lut.shape[-1]
     out = torch.empty_like(img)
     if img.numel() == 0:
         return out
@@ -158,6 +177,7 @@ def _onCard(name: str, img: torch.Tensor, lut: torch.Tensor, vertices: torch.Ten
                  torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.ailutErrorString(err).decode()}")
+    wrapper.launches += 1
     return out
 
 
@@ -174,10 +194,7 @@ def ailutTransform(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor)
     """
     if _allOnCpu(img, lut, vertices):
         return ailutTransformPlain(img, lut, vertices)
-    out = _onCard("ailutTransform", img, lut, vertices)
-    if out.numel():
-        ailutTransform.launches += 1
-    return out
+    return _onCard("ailutTransform", img, lut, vertices)
 
 
 ailutTransform.launches = 0
@@ -190,13 +207,29 @@ def ailutTransformClamped(img: torch.Tensor, lut: torch.Tensor, vertices: torch.
     the kernel or raise."""
     if _allOnCpu(img, lut, vertices):
         return ailutTransformClampedPlain(img, lut, vertices)
-    out = _onCard("ailutTransformClamped", img, lut, vertices)
-    if out.numel():
-        ailutTransformClamped.launches += 1
-    return out
+    return _onCard("ailutTransformClamped", img, lut, vertices)
 
 
 ailutTransformClamped.launches = 0
+
+
+def _registerOp(wrapper, opName: str):
+    """``moephoto_torch::<opName>``: the launch of ``wrapper``'s entry point
+    as an op for the card, with a fake that gives the image's shape and dtype."""
+
+    @torch.library.custom_op(f"moephoto_torch::{opName}", mutates_args=(), device_types="cuda")
+    def op(img: torch.Tensor, lut: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+        return _launch(wrapper, img, lut, vertices)
+
+    @op.register_fake
+    def _(img, lut, vertices):
+        return torch.empty_like(img)
+
+    return op
+
+
+_OPS = {f.__name__: _registerOp(f, op) for f, op in ((ailutTransform, "ailut_transform"),
+                                                     (ailutTransformClamped, "ailut_transform_clamped"))}
 
 
 def ailutTransformSpmd(img, lut: torch.Tensor, vertices: torch.Tensor):
