@@ -1,0 +1,7 @@
+"""Megapixels of every output frame completed in the window over the window's seconds."""
+
+from benchmark.harness.readers import mpxPerSecond
+
+
+def read(run):
+    return mpxPerSecond(run, "outPx")
