@@ -1,0 +1,7 @@
+"""Host ms an image in the output steps after the copy to the host (the program's moe.step.toOutput, .Channel and .toBuffer spans)."""
+
+from benchmark.harness.spans import outputHostMs
+
+
+def read(run):
+    return outputHostMs(run)

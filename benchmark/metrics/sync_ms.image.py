@@ -1,0 +1,7 @@
+"""Host ms an image in the device synchronisations after the steps (the program's moe.sync spans)."""
+
+from benchmark.harness.spans import syncMs
+
+
+def read(run):
+    return syncMs(run)

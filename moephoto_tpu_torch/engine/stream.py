@@ -21,6 +21,8 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from moephoto_tpu_torch.progress import span
+
 
 class RowRef:
     """Lazy reference to row ``i`` of a batched stage output: a batch put
@@ -369,11 +371,12 @@ class StreamGraph:
         return progress
 
     def run(self, last: bool = False):
-        memo = {}
-        while self._round(-1, memo):
-            pass
-        if last:
-            maxDepth = max((self._depth(st, memo) for st in self.stages), default=0)
-            for d in range(maxDepth + 1):
-                while self._round(d, memo):
-                    pass
+        with span("moe.stream.run"):
+            memo = {}
+            while self._round(-1, memo):
+                pass
+            if last:
+                maxDepth = max((self._depth(st, memo) for st in self.stages), default=0)
+                for d in range(maxDepth + 1):
+                    while self._round(d, memo):
+                        pass

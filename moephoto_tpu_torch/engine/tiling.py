@@ -19,6 +19,8 @@ from typing import Callable, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from moephoto_tpu_torch.progress import count, span
+
 ceilTo = lambda x, d: -(-int(x) // d) * d
 
 
@@ -177,21 +179,26 @@ def tiledApply(
     devices = mesh.flat if mesh is not None else None
     per = batch * (len(devices) if devices else 1)
     for start in range(0, n, per):
-        chunk = places[start : start + per]
-        tiles = [xp[y : y + th, xc : xc + tw] for y, xc, _ in chunk]
-        if devices:
-            out = _meshChunk(fn, tiles, batch, devices, x.device)
-        else:
-            tiles += tiles[-1:] * (batch - len(chunk))  # one model shape per call
-            out = fn(torch.stack(tiles))
-        if out.shape[1:3] != (oth, otw):
-            raise ValueError(f"tile output {tuple(out.shape)} != ({oth}, {otw})")
-        for (y, xc, edges), tileOut in zip(chunk, out):
-            if edges not in windows:
-                windows[edges] = blendWindow(oth, otw, padSc, edges, x.device)[:, :, None]
-            win = windows[edges]
-            oy, ox = int(round(y * sc)), int(round(xc * sc))
-            canvas[oy : oy + oth, ox : ox + otw] += tileOut.float() * win
-            weight[oy : oy + oth, ox : ox + otw] += win
+        with span("moe.engine.chunk"):
+            chunk = places[start : start + per]
+            # every model call runs ``batch`` tiles: the last of a device's
+            # share repeats to fill it
+            count("tiles_needed", len(chunk))
+            count("tiles_run", batch * -(-len(chunk) // batch))
+            tiles = [xp[y : y + th, xc : xc + tw] for y, xc, _ in chunk]
+            if devices:
+                out = _meshChunk(fn, tiles, batch, devices, x.device)
+            else:
+                tiles += tiles[-1:] * (batch - len(chunk))  # one model shape per call
+                out = fn(torch.stack(tiles))
+            if out.shape[1:3] != (oth, otw):
+                raise ValueError(f"tile output {tuple(out.shape)} != ({oth}, {otw})")
+            for (y, xc, edges), tileOut in zip(chunk, out):
+                if edges not in windows:
+                    windows[edges] = blendWindow(oth, otw, padSc, edges, x.device)[:, :, None]
+                win = windows[edges]
+                oy, ox = int(round(y * sc)), int(round(xc * sc))
+                canvas[oy : oy + oth, ox : ox + otw] += tileOut.float() * win
+                weight[oy : oy + oth, ox : ox + otw] += win
     out = canvas / weight.clamp_min(1e-8)
     return out[: int(round(h * sc)), : int(round(w * sc))]

@@ -22,7 +22,7 @@ import torch
 from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.engine.executor import ModelExec, rgbFilter
 from moephoto_tpu_torch.pipeline import registry
-from moephoto_tpu_torch.progress import Node
+from moephoto_tpu_torch.progress import Node, span
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
@@ -221,11 +221,12 @@ def procOutput(opt, out, *_):
         state = {"i": 0}
 
         def o(im):
-            res = reduce(applyNonNull, fs1, im)
-            if im is not None and state["i"] % 30 == 0:
-                # the preview wants RGB; the frame is BGR unless a model
-                # converted it upstream
-                _writePreview(im.flip(-1) if incomingBGR else im)
+            with span("moe.step.output"):  # one output frame's steps, which no node binds as one
+                res = reduce(applyNonNull, fs1, im)
+                if im is not None and state["i"] % 30 == 0:
+                    # the preview wants RGB; the frame is BGR unless a model
+                    # converted it upstream
+                    _writePreview(im.flip(-1) if incomingBGR else im)
             state["i"] += 1
             return [res]
 

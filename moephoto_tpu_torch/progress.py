@@ -8,10 +8,28 @@ On the GPU a step returns as soon as its kernels are queued, so
 :meth:`Node.bindFunc` waits for a device result before it traces: each
 node then learns the time of its own work, instead of the first step
 that copies to the host learning the time of all steps before it.
+
+:meth:`Node.bindFunc` also opens the step's span.  Spans and counters
+are ranges of the torch profiler, recorded only while one runs (a
+``torch.profiler.profile`` around the work), on the profiler's own
+timeline beside the device's kernels; otherwise each costs one check of
+the profiler's flag.  Their names:
+
+- ``moe.step.<op>``: one bound step, its ``settle`` included; ``<op>``
+  is the node's ``"op"`` (``moe.step.SR``, ``moe.step.toOutput``, the
+  request's root ``moe.step.image``), else its op dict's first item as
+  ``key.value`` (``moe.step.IFRNet.encode``); ``moe.step.output`` holds
+  the video route's output steps of one frame (``pipeline/steps.procOutput``);
+- ``moe.sync``: the device synchronisation in :func:`settle`;
+- ``moe.engine.chunk``: one chunk of tiles in ``engine/tiling.tiledApply``;
+- ``moe.stream.run``: one scheduling pass of ``engine/stream.StreamGraph``;
+- ``moe.count.<name>=<n>``: a zero-length range that records the count
+  ``n`` (``tiles_needed`` and ``tiles_run``, once a chunk).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -19,6 +37,7 @@ from os.path import exists
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.profiler
 
 EMA_KEEP = 0.9  # weight retained per new sample
 SILENT_OPS = {"toFloat", "toOutput", "Channel", "toBuffer", "toTorch"}
@@ -176,11 +195,39 @@ def recurse(f):
     return walk
 
 
+# --- spans and counters -----------------------------------------------------
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while the torch profiler records,
+    else a shared no-op context."""
+    return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else _NO_SPAN
+
+
+def count(name: str, n: int):
+    """Record ``n`` as a zero-length range ``moe.count.<name>=<n>`` while
+    the torch profiler records."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(f"moe.count.{name}={n}"):
+            pass
+
+
+def stepName(define: dict) -> str:
+    """``moe.step.<op>`` of a node's op dict (see the module's docstring)."""
+    if "op" in define:
+        return f"moe.step.{define['op']}"
+    item = next(iter(define.items()), None)
+    return f"moe.step.{item[0]}.{item[1]}" if item else "moe.step.node"
+
+
 def settle(result):
     """Wait for the device work behind ``result`` when it is a tensor
     that does not live on the CPU."""
     if isinstance(result, torch.Tensor) and result.device.type != "cpu":
-        torch.cuda.synchronize(result.device)
+        with span("moe.sync"):
+            torch.cuda.synchronize(result.device)
     return result
 
 
@@ -276,11 +323,14 @@ class Node:
         return self.callback(self, info)
 
     def bindFunc(self, f: Callable) -> Callable:
+        name = stepName(_registry[self.op].op)
+
         def wrapped(*args, **kwargs):
-            self.reset()
-            self.trace(0)
-            result = settle(f(*args, **kwargs))
-            self.trace()
+            with span(name):
+                self.reset()
+                self.trace(0)
+                result = settle(f(*args, **kwargs))
+                self.trace()
             return result
 
         return wrapped
