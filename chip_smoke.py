@@ -63,7 +63,13 @@ Phases, each printing one JSON line:
               device-resident 1080p frames (output Mpx/s, a profiled
               chunk), and the warp at each of its four shapes on the
               inputs the CLI run gave it, beside its bound, its plain
-              version and F.grid_sample (and on incoherent 40 px flows)
+              version and F.grid_sample (and on incoherent 40 px flows);
+              then holds the output path on the card (quantise there,
+              the integers copied into page-locked memory) bit-equal to
+              the host path it replaced on two 1080p lite x4 outputs at
+              8 bits and on 1080p IFRNet-M slomo frames at 16 bits with
+              the channel flip, each path timed warm, the first image's
+              array unchanged after the second
   8. vsr      runs the CLI's video path with IconVSR x4 (fake ffmpeg
               decode -> buffer -> VSR in bf16 -> output -> fake ffmpeg
               encode) on 22 seeded-pattern 640x360 frames with seeded
@@ -1125,6 +1131,63 @@ def slomoStream(opt, collect):
     from moephoto_tpu_torch.progress import Node
 
     return doSlomo(lambda x: None if x is None else [collect(x)], Node({"op": "smoke"}), opt)
+
+
+def checkOutputPath(seed, gpu):
+    """The output path on the card against the host path it replaced
+    (``imageio.toOutput`` over the float32 copy, then for video the flip
+    and ``imageio.toBuffer``), bit for bit: the image route's array of two
+    1080p lite x4 outputs at 8 bits (the first unchanged after the second,
+    in page-locked memory) and the video route's bytes of slomo frames at
+    16 bits.  Each path timed once warm, by the host's clock."""
+    from functools import reduce
+
+    from moephoto_tpu_torch.models.ifrnet import getOpt
+    from moephoto_tpu_torch.pipeline import registry, steps
+    from moephoto_tpu_torch.utils import imageio
+
+    def timed(fn, x):
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(x)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 40)
+    ex = registry.getSR({"model": "lite", "scale": UPSCALE})  # built by the main path
+    images = [ex(torch.rand((H, W, 3), generator=g, device="cuda")) for _ in range(2)]
+    fs, _, _ = steps.procOutput({}, dict(load=1, bitDepth=8, channel=0, source=0, sf=1))
+    device = lambda y: reduce(lambda v, f: f(v), fs, y)
+    host = lambda y: imageio.toOutput(y.float().cpu().numpy(), 8)
+    first, deviceMs = timed(device, images[0])
+    kept = first.copy()
+    want, hostMs = timed(host, images[0])
+    second = device(images[1])
+    same = [np.array_equal(first, want), np.array_equal(second, host(images[1])), np.array_equal(first, kept)]
+    pinned = torch.from_numpy(first).is_pinned()
+    if not (all(same) and first.dtype == want.dtype and first.shape == (H * UPSCALE, W * UPSCALE, 3) and pinned
+            and not np.shares_memory(first, second)):
+        raise AssertionError(f"output path, image: equal {same}, dtype {first.dtype}, shape {first.shape}, "
+                             f"pinned {pinned}")
+    image = dict(shape=list(first.shape), dtype=str(first.dtype), out_bytes=first.nbytes, device_path_ms=deviceMs,
+                 host_path_ms=hostMs, pinned=pinned)
+    del images, first, second, kept, want
+
+    frames = []
+    f = slomoStream(getOpt(dict(SLOMO[0])), frames.append)
+    for _ in range(2):
+        f(torch.rand((H, W, 3), generator=g, device="cuda"))
+    f(None)
+    fs, _, _ = steps.procOutput({}, dict(load=1, bitDepth=16, channel=0, source=1, sf=1))
+    device = lambda y: fs[0](y)[0]
+    host = lambda y: imageio.toBuffer(imageio.toOutput(y.float().cpu().numpy(), 16)[..., ::-1], 16)
+    got, deviceMs = timed(device, frames[1])
+    want, hostMs = timed(host, frames[1])
+    differ = [i for i, fr in enumerate(frames) if device(fr) != host(fr)]
+    if got != want or differ or len(got) != H * W * 6:
+        raise AssertionError(f"output path, video: {len(got)} bytes, frames {differ} of {len(frames)} differ")
+    emit(phase="output_path", gpu=gpu, image=image, frame=dict(frames=len(frames), dtype=str(frames[1].dtype),
+         out_bytes=len(got), device_path_ms=deviceMs, host_path_ms=hostMs))
 
 
 def checkVideoCrop(seed):
@@ -3771,6 +3834,7 @@ def main(argv=None) -> int:
         warpLaunches, pathInputs, slomoFrames = runVideo(work)
         checkVideoCrop(args.seed)
         wt = timingSlomo(args.seed, smi, pathInputs)
+        checkOutputPath(args.seed, smi)
         mark("video")
         dcnLaunches, dcnInputs, vsrFrames, edvrCalls, vsrWarps = runVsr(work)
         checkVsrCrop(args.seed)

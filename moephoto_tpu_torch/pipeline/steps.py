@@ -7,7 +7,8 @@ is ported: ``file``, ``buffer``, ``SR``, ``resize``, ``DN``, ``dehaze``,
 package's registries.
 
 In-pipeline image representation: torch float32 HWC in [0, 1] on the
-compute device between steps; the ``output`` step copies to the host.
+compute device between steps; the ``output`` step quantises there and
+copies the integers to the host.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.engine.executor import ModelExec, rgbFilter
 from moephoto_tpu_torch.pipeline import registry
-from moephoto_tpu_torch.progress import Node, span
+from moephoto_tpu_torch.progress import Node, count, span
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.utils import imageio
 
@@ -164,9 +165,12 @@ def procResize(opt, out, nodes):
     return [node.bindFunc(NonNullWrap(resizeStep(opt, out, len(nodes), nodes)))], [node], out
 
 
-def toFloatHost(im) -> np.ndarray:
-    """Device image -> host float32 numpy (waits for the device)."""
-    return im.float().cpu().numpy()
+def copyOut(q: torch.Tensor) -> np.ndarray:
+    """The output path's copy of an integer image to the host, its bytes
+    counted as ``out_bytes``."""
+    arr = imageio.toHost(q)
+    count("out_bytes", arr.nbytes)
+    return arr
 
 
 def restrictSize(maxSide: int):
@@ -191,7 +195,7 @@ def _writePreview(im):
     failed preview does not stop the video."""
     if config.videoPreview and context.shared is not None and context.root is not None:
         try:
-            arr = imageio.toOutput(toFloatHost(restrictSize(2048)(im)), 8)
+            arr = imageio.toHost(imageio.quantise(restrictSize(2048)(im), 8))
             context.shared.seek(0)
             imageio.writeFile(arr, context.shared, context, config.videoPreview)
             context.root.trace(0, preview="{}/.preview.{}".format(config.outDir, config.videoPreview),
@@ -202,36 +206,42 @@ def _writePreview(im):
 
 
 def procOutput(opt, out, *_):
+    """Quantise on the compute device (``toFloat``), then copy only the
+    integers to the host (``toOutput``).  Video flips the channels on the
+    device before the copy (``Channel``) and hands the encode pipe raw
+    bytes (``toBuffer``)."""
     load = out["load"]
     bitDepthOut = out["bitDepth"]
     node0 = Node(dict(op="toFloat"), load)
     node1 = newNode(opt, dict(op="toOutput", bits=bitDepthOut), load)
-    fOutput = node1.bindFunc(lambda im: imageio.toOutput(im, bitDepthOut))
-    fs = [NonNullWrap(node0.bindFunc(toFloatHost)), NonNullWrap(fOutput)]
-    ns = [node0, node1]
-    if out["source"]:  # video: raw BGR buffers for the encode pipe
-        incomingBGR = bool(out["channel"])
-        fTrace = lambda x: context.root.trace(1 / out["sf"]) or x
-        fs1 = [node0.bindFunc(toFloatHost), fOutput]
-        if not out["channel"]:
-            ns.append(appendFuncs(lambda im: im[..., ::-1], Node(dict(op="Channel")), fs1, False))
-            out["channel"] = 1
-        ns.append(appendFuncs(lambda im: imageio.toBuffer(im, bitDepthOut),
-                              Node(dict(op="toBuffer", bits=bitDepthOut), load), fs1, False))
-        state = {"i": 0}
+    fQuantise = node0.bindFunc(lambda im: imageio.quantise(im, bitDepthOut))
+    if not out["source"]:
+        fOutput = node1.bindFunc(lambda q: imageio.fromQuantised(copyOut(q), bitDepthOut))
+        return [NonNullWrap(fQuantise), NonNullWrap(fOutput)], [node0, node1], out
+    # video: raw BGR buffers for the encode pipe
+    incomingBGR = bool(out["channel"])
+    fTrace = lambda x: context.root.trace(1 / out["sf"]) or x
+    # the nodes keep the JAX package's order; the copy runs after the flip
+    fs1, ns = [fQuantise], [node0, node1]
+    if not out["channel"]:
+        ns.append(appendFuncs(BGR2RGB, Node(dict(op="Channel")), fs1, False))
+        out["channel"] = 1
+    fs1.append(node1.bindFunc(copyOut))
+    # the copy's dtype already has the pipe's bytes: int16 bit patterns are uint16's
+    ns.append(appendFuncs(lambda arr: arr.tobytes(), Node(dict(op="toBuffer", bits=bitDepthOut), load), fs1, False))
+    state = {"i": 0}
 
-        def o(im):
-            with span("moe.step.output"):  # one output frame's steps, which no node binds as one
-                res = reduce(applyNonNull, fs1, im)
-                if im is not None and state["i"] % 30 == 0:
-                    # the preview wants RGB; the frame is BGR unless a model
-                    # converted it upstream
-                    _writePreview(im.flip(-1) if incomingBGR else im)
-            state["i"] += 1
-            return [res]
+    def o(im):
+        with span("moe.step.output"):  # one output frame's steps, which no node binds as one
+            res = reduce(applyNonNull, fs1, im)
+            if im is not None and state["i"] % 30 == 0:
+                # the preview wants RGB; the frame is BGR unless a model
+                # converted it upstream
+                _writePreview(im.flip(-1) if incomingBGR else im)
+        state["i"] += 1
+        return [res]
 
-        fs = [o, fTrace]
-    return fs, ns, out
+    return [o, fTrace], ns, out
 
 
 def procVideo(op):

@@ -1,5 +1,6 @@
 """Image I/O and dtype conversion: images on the host (numpy HWC), raw
-video frames between the ffmpeg pipes and the compute device."""
+video frames between the ffmpeg pipes and the compute device, and the
+output's quantisation on the device with its copy to the host."""
 
 from __future__ import annotations
 
@@ -44,6 +45,43 @@ def toBuffer(image: Optional[np.ndarray], bitDepth: int = 16) -> Optional[bytes]
     if image is None:
         return None
     return np.ascontiguousarray(image.astype(npDtypeFor(bitDepth))).tobytes()
+
+
+def quantise(image: torch.Tensor, bitDepth: int = 8) -> torch.Tensor:
+    """Float HWC tensor in [0, 1] -> integer tensor on the same device,
+    value for value ``toOutput``'s for finite values (the product by
+    2^bits is exact in fp32, and the cast truncates as ``astype`` does).
+
+    The dtype sets the bytes that later cross the bus: uint8 to 8 bits,
+    int16 to 16, where 16-bit values are carried as int16 bit patterns,
+    since torch's uint16 is thinly supported (``fromBuffer`` reads them
+    so; ``fromQuantised`` widens them on the host); int32 above.  The
+    input is not modified."""
+    quant = 1 << bitDepth
+    y = image.float() * quant
+    y.clamp_(0, quant - 1)
+    if bitDepth <= 8:
+        return y.to(torch.uint8)
+    q = y.to(torch.int32)
+    return q.to(torch.int16) if bitDepth <= 16 else q
+
+
+def toHost(q: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array of its own.  A device tensor is copied
+    into page-locked memory from torch's caching host allocator: the
+    array keeps the block alive, and the allocator takes it back once the
+    array is dropped, so no later copy overwrites a returned array."""
+    if q.device.type == "cpu":
+        return q.numpy()
+    host = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+    host.copy_(q)
+    return host.numpy()
+
+
+def fromQuantised(arr: np.ndarray, bitDepth: int) -> np.ndarray:
+    """``quantise``'s values on the host in ``toOutput``'s dtype: 16-bit
+    values widen from their int16 bit patterns to int32."""
+    return arr.view(np.uint16).astype(np.int32) if bitDepth == 16 else arr
 
 
 def fromBuffer(buffer, height: int, width: int, bitDepth: int = 16,

@@ -76,7 +76,8 @@ def test_chain_steps_nest_in_the_request(chain):
 
 
 def test_video_output_steps_nest_in_one_range(monkeypatch):
-    """The video route's output steps of a frame lie in one
+    """The video route's output steps of a frame, and the count of the
+    bytes its copy moves (4 x 6 x 3 values of 2 bytes), lie in one
     ``moe.step.output``; the input step before it does not."""
     monkeypatch.setattr(config, "device", "cpu")
     monkeypatch.setattr(context, "root", progress.Node({"op": "video"}, learn=0))
@@ -87,7 +88,7 @@ def test_video_output_steps_nest_in_one_range(monkeypatch):
     assert out == raw.tobytes()
     evs = events(prof)
     assert [e[0] for e in evs] == ["moe.step.toTorch", "moe.step.output", "moe.step.toFloat",
-                                   "moe.step.toOutput", "moe.step.toBuffer"]
+                                   "moe.step.toOutput", "moe.count.out_bytes=144", "moe.step.toBuffer"]
     assert evs[0][2] <= evs[1][1] and all(evs[1][1] <= e[1] and e[2] <= evs[1][2] for e in evs[2:])
 
 
