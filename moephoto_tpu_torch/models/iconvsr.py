@@ -13,7 +13,13 @@ state (bounded lookahead); the forward pass carries its state across
 chunks; keyframes come every ``RefTime`` frames and at the end of the
 stream, and EDVR runs on each keyframe's full ``RefTime``-frame window.
 SpyNet runs once per chunk on the chunk's frame pairs, EDVR once per
-keyframe clip, the recurrences are Python loops over the chunk.
+keyframe clip, the recurrences are Python loops over the chunk.  Each of
+these is a profiler span while one records (``progress.span``):
+``moe.vsr.edvr`` one keyframe clip's EDVR, ``moe.vsr.spynet`` one chunk's
+flows and ``moe.vsr.scan`` one chunk's recurrence (in either direction),
+``moe.vsr.up`` one upsampler sub-batch; each backward chunk counts its
+EDVR calls and its frames (``moe.count.vsr_keyframes``,
+``moe.count.vsr_frames``).
 
 Tensors are NHWC at every function boundary; convolutions run on NCHW
 views of them (channels-last in memory on the card).  The flows and the
@@ -49,7 +55,7 @@ from moephoto_tpu_torch.parallel import sharded
 from moephoto_tpu_torch.parallel.mesh import replicaOn
 from moephoto_tpu_torch.parallel.sharded import RowShards, rowSegment, zipShards
 from moephoto_tpu_torch.parallel.temporal import rowStage
-from moephoto_tpu_torch.progress import Node
+from moephoto_tpu_torch.progress import Node, count, span
 
 RefTime = 7
 NumFeat = 64
@@ -502,16 +508,21 @@ class IconVSR(nn.Module):
         return conv(on(self.upsample, v), f).float() + up.float()
 
     def _upsampleChunkPlain(self, inp: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self._upsample(cat([feat[s : s + UpSubBatch], inp[s : s + UpSubBatch]]))
-                          for s in range(0, inp.shape[0], UpSubBatch)])
+        outs = []
+        for s in range(0, inp.shape[0], UpSubBatch):
+            with span("moe.vsr.up"):
+                outs.append(self._upsample(cat([feat[s : s + UpSubBatch], inp[s : s + UpSubBatch]])))
+        return torch.cat(outs)
 
     def _upsampleChunkSharded(self, inp: RowShards, feat: RowShards) -> RowShards:
         """The upsampler on row shards, each sub-batch a segment of UP_HALO
         rows at scale 4."""
-        return catRows([rowSegment(self._upsample, zipShards(lambda a, b, s=s: cat([a[s : s + UpSubBatch],
-                                                                                     b[s : s + UpSubBatch]]),
-                                                             feat, inp), UP_HALO, 4)
-                        for s in range(0, inp.shape[0], UpSubBatch)])
+        outs = []
+        for s in range(0, inp.shape[0], UpSubBatch):
+            with span("moe.vsr.up"):
+                sub = zipShards(lambda a, b: cat([a[s : s + UpSubBatch], b[s : s + UpSubBatch]]), feat, inp)
+                outs.append(rowSegment(self._upsample, sub, UP_HALO, 4))
+        return catRows(outs)
 
     # (T, H, W, 3), (T, H, W, C) -> (T, 4H, 4W, 3) fp32: the upsampler plus the
     # bilinear x4 of the input, ``UpSubBatch`` frames a call.  Under a mesh the
@@ -630,15 +641,23 @@ def doVSR(func, node, opt: VSROpt):
         featItems: List = [None] * n
         warps = [True] * n
         warps[-1] = not last  # no flow past the final frame
+        count("vsr_keyframes", len(kfPos))
+        count("vsr_frames", n)
         with torch.inference_mode():
             if kfPos:
                 clips = torch.stack([f for i in kfPos for f in keyframeClips[i]]).to(opt.dtype)
                 clips = clips.reshape((-1, RefTime) + clips.shape[1:])
-                kfFeats = catRows([model.edvr(clips[j : j + 1]) for j in range(clips.shape[0])])
+                feats = []
+                for j in range(clips.shape[0]):
+                    with span("moe.vsr.edvr"):
+                        feats.append(model.edvr(clips[j : j + 1]))
+                kfFeats = catRows(feats)
                 for rank, i in enumerate(kfPos):
                     featItems[i] = (kfFeats, rank)
-            flows = toFloat(model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype)))
-            outs = model.backwardScan(inp.to(opt.dtype), flows, warps, [_row(it) for it in featItems])
+            with span("moe.vsr.spynet"):
+                flows = toFloat(model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype)))
+            with span("moe.vsr.scan"):
+                outs = model.backwardScan(inp.to(opt.dtype), flows, warps, [_row(it) for it in featItems])
         keyframeFeatFwd.put(featItems)
         out = [(outs, i) for i in range(n)]
         if last and not tailState["backPad"]:
@@ -655,12 +674,14 @@ def doVSR(func, node, opt: VSROpt):
             featProp = forwardState["featProp"]
             if featProp is None:
                 featProp = inp.new_zeros((1, h, w, NumFeat), dtype=opt.dtype)
-            flows = toFloat(model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype).flip(1)))  # reversed pairs
+            with span("moe.vsr.spynet"):
+                flows = toFloat(model.spynet(_stackPairs(flowInp[:n], inp[0], opt.dtype).flip(1)))  # reversed pairs
             x = inp.to(opt.dtype)
             # each backward window's first item is a real frame's (outputs, row)
-            feats, featProp = model.forwardScan(featProp, x, [_row(b[0]) for b in backward[:n]], flows,
-                                                [f is not None for f in flowInp[:n]],
-                                                [_row(it) for it in keyframeFeat[:n]])
+            with span("moe.vsr.scan"):
+                feats, featProp = model.forwardScan(featProp, x, [_row(b[0]) for b in backward[:n]], flows,
+                                                    [f is not None for f in flowInp[:n]],
+                                                    [_row(it) for it in keyframeFeat[:n]])
             out = model.upsampleChunk(x, feats)
         forwardState["featProp"] = featProp
         oh, ow = opt.outHW

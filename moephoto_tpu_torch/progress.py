@@ -23,8 +23,11 @@ the profiler's flag.  Their names:
 - ``moe.sync``: the device synchronisation in :func:`settle`;
 - ``moe.engine.chunk``: one chunk of tiles in ``engine/tiling.tiledApply``;
 - ``moe.stream.run``: one scheduling pass of ``engine/stream.StreamGraph``;
+- ``moe.vsr.edvr``, ``.spynet``, ``.scan``, ``.up``: IconVSR's parts
+  (``models/iconvsr.py``);
 - ``moe.count.<name>=<n>``: a zero-length range that records the count
-  ``n`` (``tiles_needed`` and ``tiles_run``, once a chunk).
+  ``n`` (``tiles_needed`` and ``tiles_run``, once a chunk of tiles;
+  ``vsr_keyframes`` and ``vsr_frames``, once a backward chunk of VSR).
 """
 
 from __future__ import annotations
