@@ -69,7 +69,11 @@ Phases, each printing one JSON line:
               the host path it replaced on two 1080p lite x4 outputs at
               8 bits and on 1080p IFRNet-M slomo frames at 16 bits with
               the channel flip, each path timed warm, the first image's
-              array unchanged after the second
+              array unchanged after the second; then holds the input
+              path on the card (the integers uploaded and widened there)
+              bit-equal to the host conversion it replaced on the 256
+              byte values, the 65536 16-bit values and a 1080p image,
+              both paths timed warm
   8. vsr      runs the CLI's video path with IconVSR x4 (fake ffmpeg
               decode -> buffer -> VSR in bf16 -> output -> fake ffmpeg
               encode) on 22 seeded-pattern 640x360 frames with seeded
@@ -1188,6 +1192,46 @@ def checkOutputPath(seed, gpu):
         raise AssertionError(f"output path, video: {len(got)} bytes, frames {differ} of {len(frames)} differ")
     emit(phase="output_path", gpu=gpu, image=image, frame=dict(frames=len(frames), dtype=str(frames[1].dtype),
          out_bytes=len(got), device_path_ms=deviceMs, host_path_ms=hostMs))
+
+
+def checkInputPath(seed, gpu):
+    """The input path on the card (``pipeline/steps.toDevice``: the
+    integers uploaded, widened there) against the host conversion it
+    replaced (``astype(np.float32) / 255.0`` or ``/ 65536.0``, then the
+    float32 upload), bit for bit: the 256 byte values, the 65536 16-bit
+    values and a seeded 1080p RGB image.  Each path timed warm by the
+    host's clock, the median of 9 calls, each ending in a synchronise."""
+    from moephoto_tpu_torch.pipeline import steps
+
+    def host(arr):
+        scale = 255.0 if arr.dtype == np.uint8 else 65536.0
+        return torch.from_numpy(arr.astype(np.float32) / scale).to("cuda")
+
+    def medianMs(fn, arr):
+        fn(arr)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            fn(arr)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    cases = {"bytes": np.repeat(np.arange(256, dtype=np.uint8), 3).reshape(16, 16, 3),
+             "uint16": np.arange(65536, dtype=np.uint16).reshape(256, 256, 1),
+             "image_1080p": np.random.RandomState(seed + 41).randint(0, 256, (H, W, 3)).astype(np.uint8)}
+    out = {}
+    for name, arr in cases.items():
+        got, want = steps.toDevice(arr), host(arr)
+        same = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        if not (same and got.dtype == torch.float32 and got.shape == want.shape and got.is_contiguous()
+                and got.device.type == "cuda"):
+            raise AssertionError(f"input path, {name}: equal {same}, dtype {got.dtype}, shape {tuple(got.shape)}")
+        out[name] = dict(shape=list(arr.shape), in_bytes=arr.nbytes)
+    image = cases["image_1080p"]
+    out["image_1080p"].update(device_path_ms=medianMs(steps.toDevice, image), host_path_ms=medianMs(host, image))
+    emit(phase="input_path", gpu=gpu, cases=out)
 
 
 def checkVideoCrop(seed):
@@ -3835,6 +3879,7 @@ def main(argv=None) -> int:
         checkVideoCrop(args.seed)
         wt = timingSlomo(args.seed, smi, pathInputs)
         checkOutputPath(args.seed, smi)
+        checkInputPath(args.seed, smi)
         mark("video")
         dcnLaunches, dcnInputs, vsrFrames, edvrCalls, vsrWarps = runVsr(work)
         checkVsrCrop(args.seed)

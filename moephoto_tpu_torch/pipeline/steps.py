@@ -14,7 +14,7 @@ copies the integers to the host.
 from __future__ import annotations
 
 import logging
-from functools import reduce
+from functools import lru_cache, reduce
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -50,19 +50,36 @@ def appendFuncs(f, node, funcs, wrap=True):
 BGR2RGB = lambda im: im.flip(-1)
 
 
+@lru_cache(maxsize=None)
+def _byteMax(device: torch.device) -> torch.Tensor:
+    """255 as a 0-dim tensor on ``device``.  Dividing by it is true
+    division there; CUDA divides by a Python scalar as a product with its
+    reciprocal, which misses the host's ``u8 / 255`` in 126 of the 256
+    byte values."""
+    return torch.tensor(255.0, device=device)
+
+
 def toDevice(im) -> torch.Tensor:
     """Host HWC uint/float -> float32 HWC in [0, 1] on the compute device
-    (a tensor, as ``buffer`` frames arrive, only moves there)."""
+    (a tensor, as ``buffer`` frames arrive, only moves there).
+
+    An 8- or 16-bit array crosses as its integers, contiguous, and is
+    widened on the device, each value bit-equal to the host's
+    ``astype(np.float32) / 255.0`` or ``/ 65536.0``; a float32 array
+    crosses as it is, any other dtype as float32.  The bytes that cross
+    are counted as ``in_bytes``."""
+    device = config.torchDevice()
     if isinstance(im, torch.Tensor):
-        return im.to(config.torchDevice(), torch.float32)
+        return im.to(device, torch.float32)
     arr = np.asarray(im)
-    if arr.dtype == np.uint8:
-        arr = arr.astype(np.float32) / 255.0
-    elif arr.dtype == np.uint16:
-        arr = arr.astype(np.float32) / 65536.0
-    elif arr.dtype != np.float32:
+    if arr.dtype not in (np.uint8, np.uint16, np.float32):
         arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(config.torchDevice())
+    arr = np.ascontiguousarray(arr)
+    count("in_bytes", arr.nbytes)
+    if arr.dtype == np.uint16:
+        return imageio.fromInt16(torch.from_numpy(arr.view(np.int16)).to(device))
+    x = torch.from_numpy(arr).to(device)
+    return x / _byteMax(device) if arr.dtype == np.uint8 else x
 
 
 def execFilter(exec_: ModelExec) -> Callable:

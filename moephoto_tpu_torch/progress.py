@@ -27,7 +27,9 @@ the profiler's flag.  Their names:
   (``models/iconvsr.py``);
 - ``moe.count.<name>=<n>``: a zero-length range that records the count
   ``n`` (``tiles_needed`` and ``tiles_run``, once a chunk of tiles;
-  ``vsr_keyframes`` and ``vsr_frames``, once a backward chunk of VSR).
+  ``vsr_keyframes`` and ``vsr_frames``, once a backward chunk of VSR;
+  ``in_bytes`` and ``out_bytes``, once an image or frame: the bytes the
+  input and output steps copy, ``pipeline/steps.py``).
 """
 
 from __future__ import annotations

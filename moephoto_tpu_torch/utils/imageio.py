@@ -84,6 +84,13 @@ def fromQuantised(arr: np.ndarray, bitDepth: int) -> np.ndarray:
     return arr.view(np.uint16).astype(np.int32) if bitDepth == 16 else arr
 
 
+def fromInt16(x: torch.Tensor) -> torch.Tensor:
+    """16-bit values carried as int16 bit patterns -> float32 in [0, 1) on
+    their device: the low 16 bits taken back as an integer, then
+    u16 / 65536, which is exact."""
+    return (x.to(torch.int32) & 0xFFFF).to(torch.float32) / 65536.0
+
+
 def fromBuffer(buffer, height: int, width: int, bitDepth: int = 16,
                device: Optional[torch.device] = None) -> Optional[torch.Tensor]:
     """Raw 3-channel frame bytes -> float32 HWC in [0, 1) on ``device``.
@@ -101,8 +108,7 @@ def fromBuffer(buffer, height: int, width: int, bitDepth: int = 16,
             # bytes are read-only; the tensor is only read, to upload it
             warnings.simplefilter("ignore", UserWarning)
             raw = torch.frombuffer(buffer, dtype=torch.int16, count=n)
-        u16 = raw.to(device).to(torch.int32) & 0xFFFF
-        return (u16.to(torch.float32) / 65536.0).reshape(height, width, 3)
+        return fromInt16(raw.to(device)).reshape(height, width, 3)
     arr = np.frombuffer(buffer, dtype=npDtypeFor(bitDepth), count=n)
     x = torch.from_numpy(arr.astype(np.float32) / (1 << bitDepth))
     return x.reshape(height, width, 3).to(device)

@@ -75,6 +75,20 @@ def test_chain_steps_nest_in_the_request(chain):
     assert not [e for e in evs if e[0] == "moe.sync"]  # the CPU needs none
 
 
+@pytest.mark.parametrize("dtype, size", [(np.uint8, 1), (np.uint16, 2)])
+def test_chain_counts_the_input_bytes_once(chain, dtype, size):
+    """The image route records ``moe.count.in_bytes=<n>`` once a request,
+    inside ``moe.step.toTorch``: the image's values x bytes a value."""
+    image = np.zeros((12, 20, 3), dtype)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        chain(image)
+    evs = events(prof)
+    counts = [e for e in evs if e[0].startswith("moe.count.in_bytes=")]
+    (toTorch,) = [e for e in evs if e[0] == "moe.step.toTorch"]
+    assert [e[0] for e in counts] == [f"moe.count.in_bytes={image.size * size}"]
+    assert toTorch[1] <= counts[0][1] and counts[0][2] <= toTorch[2]
+
+
 def test_video_output_steps_nest_in_one_range(monkeypatch):
     """The video route's output steps of a frame, and the count of the
     bytes its copy moves (4 x 6 x 3 values of 2 bytes), lie in one
