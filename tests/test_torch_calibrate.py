@@ -13,7 +13,7 @@ from moephoto_tpu_torch.engine.executor import ModelExec
 from moephoto_tpu_torch.pipeline import registry
 from moephoto_tpu_torch.synth import synthLite2Params
 from moephoto_tpu_torch.tools import calibrate
-from tests.torch_one_thread import oneTorchThread  # noqa: F401
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ARGS = ["lite2", "--tiles", "32,48", "--batches", "1,2", "--size", "64x96"]
 POINT = re.compile(r"^tile=(\d+) batch=(\d+): ([0-9.]+) Mpx/s$")

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from moephoto_tpu_torch.tools import chipparity
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 KEYS = ("dcnDensePallas", "warpBounded", "backWarpBounded", "fusedUpHeads", "ailutTransformPallas",
         "ailutTransformPallasT_rel")

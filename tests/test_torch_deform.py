@@ -19,6 +19,7 @@ from moephoto_tpu.ops import deform as jaxDeform
 from moephoto_tpu.ops.dcnkernel import dcnDensePallas
 from moephoto_tpu_torch.models.api import fromJaxParams
 from moephoto_tpu_torch.ops import deform as D
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 # bf16 against the Pallas body in bf16: both round each sampled value to

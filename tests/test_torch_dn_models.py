@@ -25,6 +25,7 @@ from moephoto_tpu.models import sr as jaxSr
 from moephoto_tpu_torch import synth
 from moephoto_tpu_torch.models import api as PA
 from moephoto_tpu_torch.models import blocks, sr
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 MODEL_TOL = 2e-5
 

@@ -34,6 +34,7 @@ from moephoto_tpu_torch.pipeline import registry, steps
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.synth import (synthAODParams, synthIFRNetParams, synthLite2Params, synthMyNetParams,
                                       synthNetDNParams, synthSEDNParams)
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 CHAIN = [{"op": "DN", "model": "lite5"}, {"op": "SR", "model": "lite", "scale": 4}]
 PRESET = [{"scale": 2, "model": "lite", "ensemble": 0, "op": "SR"},

@@ -30,6 +30,7 @@ from moephoto_tpu_torch.models import estrnn as P
 from moephoto_tpu_torch.models.api import conv, fromJaxParams
 from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.synth import synthESTRNNParams, synthIFRNetParams
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-6

@@ -35,7 +35,7 @@ from moephoto_tpu_torch.ops import fusedup, lut
 from moephoto_tpu_torch.pipeline import registry
 from moephoto_tpu_torch.synth import synthAiLUTParams, synthAODParams, synthLite2Params
 from moephoto_tpu_torch.tools import export
-from tests.torch_one_thread import oneTorchThread  # noqa: F401
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 

@@ -26,6 +26,7 @@ from moephoto_tpu_torch.models.api import conv
 from moephoto_tpu_torch.ops.deform import deformConv2d
 from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.synth import synthIconVSRParams
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 TOL = 5e-5
 BLOCKS = 2

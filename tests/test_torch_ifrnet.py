@@ -27,6 +27,7 @@ from moephoto_tpu.progress import Node as JaxNode
 from moephoto_tpu_torch.models import ifrnet as P
 from moephoto_tpu_torch.models.api import fromJaxParams
 from moephoto_tpu_torch.progress import Node
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 GAIN = 3.0
 TOL = 5e-5

@@ -1,12 +1,16 @@
 """The port stands alone: no module of moephoto_tpu_torch, and neither
-chip_smoke.py nor app_torch.py, imports JAX or the JAX package."""
+chip_smoke.py nor app_torch.py, imports JAX or the JAX package.  And every
+port test module runs torch on one thread (``tests/torch_one_thread.py``)."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
 
 import pytest
+
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "moephoto_tpu")
@@ -47,3 +51,16 @@ def test_port_entry_modules_load_without_jax():
             "or m == 'moephoto_tpu' or m.startswith('moephoto_tpu.')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_every_port_test_module_takes_one_torch_thread():
+    """Each ``tests/test_torch_*.py`` imports the autouse ``oneTorchThread``,
+    so that no port test runs torch's default pool under the suite's workers."""
+    missing = []
+    for path in sorted(glob.glob(os.path.join(ROOT, "tests", "test_torch_*.py"))):
+        with open(path, encoding="utf-8") as fp:
+            tree = ast.parse(fp.read(), path)
+        if not any(isinstance(node, ast.ImportFrom) and node.module == "tests.torch_one_thread"
+                   and any(a.name == "oneTorchThread" for a in node.names) for node in tree.body):
+            missing.append(os.path.basename(path))
+    assert not missing, f"these modules do not import oneTorchThread from tests.torch_one_thread: {missing}"

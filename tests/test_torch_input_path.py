@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.pipeline import steps
 from moephoto_tpu_torch.utils import imageio
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 

@@ -17,6 +17,7 @@ from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.models.api import fromJaxParams, packBlockDiag
 from moephoto_tpu_torch.models.sr import MoeNetLite2
 from moephoto_tpu_torch.synth import synthLite2Params
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 

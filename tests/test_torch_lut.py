@@ -19,6 +19,7 @@ import torch
 from moephoto_tpu.ops.lut import ailutTransform as jaxAilutTransform
 from moephoto_tpu.ops.lutkernel import ailutTransformPallasT
 from moephoto_tpu_torch.ops import lut
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 D = 33
 

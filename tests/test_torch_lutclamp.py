@@ -21,6 +21,7 @@ from moephoto_tpu.ops.lut import ailutTransform as jaxAilutTransform
 from moephoto_tpu.ops.lutkernel import ailutTransformPallas
 from moephoto_tpu_torch.ops import lut
 from test_torch_lut import onVertices
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 D = 33
 

@@ -26,6 +26,7 @@ from moephoto_tpu_torch.engine.executor import ModelExec
 from moephoto_tpu_torch.models import api as PA
 from moephoto_tpu_torch.models import nafnet
 from moephoto_tpu_torch.pipeline import registry
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 MODEL_TOL = 2e-5
 TILED_TOL = 5e-5

@@ -16,7 +16,7 @@ from moephoto_tpu_torch.pipeline import registry
 from moephoto_tpu_torch.synth import synthLite2Params
 from moephoto_tpu_torch.tools import package
 from moephoto_tpu_torch.tools.export import loadExported
-from tests.torch_one_thread import oneTorchThread  # noqa: F401
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 JAX_KEYS = {"name", "version", "buildTime", "python", "entry", "ufile"}
 

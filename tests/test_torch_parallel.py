@@ -22,6 +22,7 @@ from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.parallel import mesh as M
 from moephoto_tpu_torch.parallel import sharded as S
 from moephoto_tpu_torch.parallel import temporal as T
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

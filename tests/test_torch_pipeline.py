@@ -18,6 +18,7 @@ from moephoto_tpu_torch import cli, progress
 from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.pipeline import registry
 from moephoto_tpu_torch.synth import synthLite2Params
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = [{"op": "SR", "model": "lite", "scale": 4}]

@@ -34,6 +34,7 @@ from moephoto_tpu_torch.models.demoire import SunDemoire
 from moephoto_tpu_torch.models.restore import AODNet
 from moephoto_tpu_torch.pipeline.registry import _sunConvT
 from moephoto_tpu_torch.synth import synthAiLUTParams, synthAODParams, synthSunParams
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 CASES = {
     "sun": (lambda: synthSunParams(5), SunDemoire, _sunConvT),

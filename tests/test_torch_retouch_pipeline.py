@@ -19,6 +19,7 @@ from moephoto_tpu_torch import cli
 from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.pipeline import registry
 from moephoto_tpu_torch.synth import synthAiLUTParams, synthAODParams, synthSunParams
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 CHAIN = [{"op": "dehaze", "model": "sun"}, {"op": "dehaze", "model": "dehaze"},
          {"op": "dehaze", "model": "AiLUT_sRGB_3"}]

@@ -24,6 +24,7 @@ import moephoto_tpu_torch.utils.fifocache as fifo
 from moephoto_tpu.config import VERSION as JAX_VERSION, defaultConfig as jaxDefaults
 from moephoto_tpu_torch.config import Config, VERSION, defaultConfig
 from test_frontend import _parseMoeOps
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 # --- fifocache ----------------------------------------------------------------
 

@@ -28,6 +28,7 @@ from moephoto_tpu_torch.ops import warp as W
 from moephoto_tpu_torch.parallel import mesh as M
 from moephoto_tpu_torch.parallel import sharded as S
 from moephoto_tpu_torch.parallel import temporal as T
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU8 = [torch.device("cpu")] * 8

@@ -34,6 +34,7 @@ from moephoto_tpu_torch.parallel import mesh as M
 from moephoto_tpu_torch.parallel import sharded as S
 from moephoto_tpu_torch.progress import Node
 from moephoto_tpu_torch.synth import synthESTRNNParams, synthIconVSRParams
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ATOL, RTOL = 2e-5, 1e-5
 MESHES = [2, 4]

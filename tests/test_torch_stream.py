@@ -12,6 +12,7 @@ import torch
 
 from moephoto_tpu.engine import stream as jaxStream
 from moephoto_tpu_torch.engine import stream as portStream
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 
 def _jaxBatch(tags):

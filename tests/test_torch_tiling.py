@@ -19,6 +19,7 @@ from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.engine import executor, tiling
 from moephoto_tpu_torch.models.api import fromJaxParams
 from moephoto_tpu_torch.models.sr import MoeNetLite2
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 

@@ -17,6 +17,7 @@ from moephoto_tpu_torch.pipeline import steps
 from moephoto_tpu_torch.runtime.context import context
 from moephoto_tpu_torch.runtime.worker import begin
 from moephoto_tpu_torch.utils import imageio
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 SPEC = TileSpec(tile=16, pad=2, align=4, scale=2, batch=4)
 up2 = lambda t: t.repeat_interleave(2, 1).repeat_interleave(2, 2)

@@ -23,6 +23,7 @@ from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
 from moephoto_tpu_torch.synth import synthESTRNNParams, synthIconVSRParams, synthIFRNetParams
 from moephoto_tpu_torch.utils import imageio
 from moephoto_tpu_torch.video import engine
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLOMO = {"op": "slomo", "model": "IFRNet S", "sf": 2}

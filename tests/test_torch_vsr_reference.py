@@ -41,7 +41,7 @@ from moephoto_tpu_torch.models import iconvsr as P
 from moephoto_tpu_torch.ops.deform import deformConv2dPlain
 from moephoto_tpu_torch.ops.warp import backWarp
 from moephoto_tpu_torch.progress import Node
-from tests.torch_one_thread import oneTorchThread  # noqa: F401
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKS, H, W, N, SEED = 1, 40, 48, 24, 2**31 + 18
@@ -104,25 +104,20 @@ def stream(models, clip):
     frames, padded = clip
     calls = {"port": [], "ref": []}
     standPort, standRef = _standIns(padded, calls)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(P.EDVR, "forward", standPort)
-            mp.setattr(R.EDVR, "forward", standRef)
-            opt = P.VSROpt()
-            opt.model, opt.dtype, opt.start = port, torch.float32, 3
-            f = P.doVSR(lambda x: None if x is None else [x], Node({"op": "test"}), opt)
-            outs = []
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                with record_function(tracing.WINDOW):
-                    for raw in frames:
-                        outs.extend(f(frameFromBytes(raw, H, W, "cpu")[0].permute(1, 2, 0)))
-                    opt.end = -3
-                    outs.extend(f(None))
-            want = R.vsrClip(ref, frames, H, W, "cpu", KEEP)
-    finally:
-        torch.set_num_threads(n)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(P.EDVR, "forward", standPort)
+        mp.setattr(R.EDVR, "forward", standRef)
+        opt = P.VSROpt()
+        opt.model, opt.dtype, opt.start = port, torch.float32, 3
+        f = P.doVSR(lambda x: None if x is None else [x], Node({"op": "test"}), opt)
+        outs = []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function(tracing.WINDOW):
+                for raw in frames:
+                    outs.extend(f(frameFromBytes(raw, H, W, "cpu")[0].permute(1, 2, 0)))
+                opt.end = -3
+                outs.extend(f(None))
+        want = R.vsrClip(ref, frames, H, W, "cpu", KEEP)
     return outs, want, calls, tracing.fromProfiler(prof)
 
 

@@ -17,6 +17,7 @@ import torch
 
 from moephoto_tpu.ops import warp as jaxWarp
 from moephoto_tpu_torch.ops import warp as W
+from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 
