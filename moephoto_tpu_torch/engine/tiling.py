@@ -7,18 +7,22 @@ model call sees one shape), and the outputs are blended with a separable
 sigmoid window by overlap-add and weight normalisation.
 
 The overlap-add runs on an fp32 canvas whatever the model's dtype: a
-canvas in bf16 would round every partial sum to 8 mantissa bits.
+canvas in bf16 would round every partial sum to 8 mantissa bits.  It
+takes one chunk at a time (``ops/blend.py`` ``blendTiles``: one kernel
+launch a chunk on the card, which copies nothing to it and never waits
+for it; the per-tile loop on the CPU).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from moephoto_tpu_torch.ops.blend import blendTiles, blendWindow  # noqa: F401  (blendWindow: the engine's window)
 from moephoto_tpu_torch.progress import count, span
 
 ceilTo = lambda x, d: -(-int(x) // d) * d
@@ -62,43 +66,6 @@ def paddedExtent(size: int, tile: int, pad: int, align: int) -> int:
         return ceilTo(size, align)
     anchors = planAxis(size, tile, pad)
     return max(anchors[-1] + tile, ceilTo(size, align))
-
-
-def _ramp(n: int) -> torch.Tensor:
-    """Sigmoid ramp over ``n`` pixels; half-pixel centering makes
-    ramp[i] + ramp[n-1-i] == 1, a partition of unity across an overlap."""
-    t = ((torch.arange(n, dtype=torch.float32) + 0.5) / n - 0.5) * 9.0
-    return torch.sigmoid(t)
-
-
-def _axisWindow(t: int, padSc: int, isFirst: bool, isLast: bool) -> torch.Tensor:
-    """1D blend weights for one tile along one axis: interior edges drop
-    the outermost ``padSc//2`` pixels and ramp across the central
-    ``2*(padSc - d)`` pixels of the overlap; image-boundary edges keep
-    weight 1 to the end."""
-    w = torch.ones(t)
-    if padSc == 0:
-        return w
-    d = padSc // 2
-    r = 2 * (padSc - d)
-    ramp = _ramp(r)
-    if not isFirst:
-        w[:d] = 0.0
-        w[d : d + r] = ramp
-    if not isLast:
-        w[t - d :] = 0.0
-        w[t - d - r : t - d] = ramp.flip(0)
-    return w
-
-
-def blendWindow(th: int, tw: int, padSc: int, edges=(False, False, False, False),
-                device=None) -> torch.Tensor:
-    """2D separable fp32 blend window; ``edges`` = (firstY, lastY,
-    firstX, lastX) flags marking image-boundary sides.  The product is
-    formed on ``device``, so only the two 1D windows are copied there."""
-    wy = _axisWindow(th, padSc, edges[0], edges[1]).to(device)
-    wx = _axisWindow(tw, padSc, edges[2], edges[3]).to(device)
-    return wy[:, None] * wx[None, :]
 
 
 def reflectPadHW(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -172,7 +139,6 @@ def tiledApply(
         for iy, y in enumerate(ys)
         for ix, xc in enumerate(xs)
     ]
-    windows: Dict[Tuple[bool, ...], torch.Tensor] = {}
     canvas = torch.zeros((oH, oW, outC), dtype=torch.float32, device=x.device)
     weight = torch.zeros((oH, oW, 1), dtype=torch.float32, device=x.device)
     n, batch = len(places), spec.batch
@@ -193,12 +159,7 @@ def tiledApply(
                 out = fn(torch.stack(tiles))
             if out.shape[1:3] != (oth, otw):
                 raise ValueError(f"tile output {tuple(out.shape)} != ({oth}, {otw})")
-            for (y, xc, edges), tileOut in zip(chunk, out):
-                if edges not in windows:
-                    windows[edges] = blendWindow(oth, otw, padSc, edges, x.device)[:, :, None]
-                win = windows[edges]
-                oy, ox = int(round(y * sc)), int(round(xc * sc))
-                canvas[oy : oy + oth, ox : ox + otw] += tileOut.float() * win
-                weight[oy : oy + oth, ox : ox + otw] += win
+            blendTiles(canvas, weight, out, [(int(round(y * sc)), int(round(xc * sc))) for y, xc, _ in chunk],
+                       [edges for _, _, edges in chunk], padSc)
     out = canvas / weight.clamp_min(1e-8)
     return out[: int(round(h * sc)), : int(round(w * sc))]

@@ -1,5 +1,7 @@
 """The port's tile engine and executor (moephoto_tpu_torch/engine/)
-against the JAX package's, tiled against tiled on a non-aligned image.
+against the JAX package's, tiled against tiled on a non-aligned image;
+and the chunk blend (``ops/blend.py``): its per-tile loop against the
+kernel's pass written in torch ops, bit for bit.
 
 Tolerance: 2e-5 absolute in fp32 for model outputs (as in
 test_torch_lite.py; the blend is a convex combination of them), 1e-6 for
@@ -19,6 +21,7 @@ from moephoto_tpu_torch.config import config
 from moephoto_tpu_torch.engine import executor, tiling
 from moephoto_tpu_torch.models.api import fromJaxParams
 from moephoto_tpu_torch.models.sr import MoeNetLite2
+from moephoto_tpu_torch.ops import blend
 from tests.torch_one_thread import oneTorchThread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
@@ -145,3 +148,144 @@ def test_bf16_tiles_blend_on_fp32_canvas():
     out = tiling.tiledApply(x, lambda t: t, tiling.TileSpec(32, 5, 8, 1.0, 3))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), x.float().numpy(), atol=1e-6, rtol=0)
+
+
+def _kernelAxis(t, padSc, first, last):
+    """An axis's window as ``csrc/blend.cu`` ``axisWeight`` computes it,
+    pixel by pixel from the ramp table: 1 when padSc is 0; else 0 below
+    ``d`` and the ramp over the next ``r`` on a side that is not the
+    image's first, then 0 from ``t - d`` and the mirrored ramp over the
+    ``r`` before on a side that is not its last, which wins where they
+    meet; 1 elsewhere."""
+    if padSc == 0:
+        return torch.ones(t)
+    d, r = blend.rampSpan(padSc)
+    table = blend.ramp(r).tolist()
+    w = []
+    for i in range(t):
+        v = 1.0
+        if not first:
+            v = 0.0 if i < d else table[i - d] if i < d + r else v
+        if not last:
+            v = 0.0 if i >= t - d else table[t - d - 1 - i] if i >= t - d - r else v
+        w.append(v)
+    return torch.tensor(w, dtype=torch.float32)
+
+
+def _kernelBlend(canvas, weight, tiles, origins, edges, padSc):
+    """``csrc/blend.cu``'s pass over a chunk in torch ops: the canvas and
+    weight of the chunk's bounding box read once, each tile's window by
+    ``_kernelAxis`` (``w = wy * wx``), the covering tiles' terms
+    (``c + float(t) * w``, ``wt + w``) added in chunk order, the box
+    written back once."""
+    th, tw = tiles.shape[1:3]
+    ya, xa = min(oy for oy, _ in origins), min(ox for _, ox in origins)
+    yb, xb = max(oy for oy, _ in origins) + th, max(ox for _, ox in origins) + tw
+    acc, wt = canvas[ya:yb, xa:xb].clone(), weight[ya:yb, xa:xb].clone()
+    for (oy, ox), e, tile in zip(origins, edges, tiles):
+        w = (_kernelAxis(th, padSc, e[0], e[1])[:, None] * _kernelAxis(tw, padSc, e[2], e[3])[None, :])[:, :, None]
+        box = (slice(oy - ya, oy - ya + th), slice(ox - xa, ox - xa + tw))
+        acc[box] = acc[box] + tile.float() * w
+        wt[box] = wt[box] + w
+    canvas[ya:yb, xa:xb] = acc
+    weight[ya:yb, xa:xb] = wt
+
+
+def _blendPlan(h, w, spec, outC, dtype, layout, seed):
+    """``tiledApply``'s plan for an (h, w) image: the canvas's shape, padSc,
+    and per chunk its padded tile outputs (``split``: the channel-split
+    planes' strides, channel stride oth * otw), origins and edges."""
+    tile, pad, align, sc = spec.tile, spec.pad, spec.align, spec.scale
+    ph, pw = (tiling.paddedExtent(n, tile, pad, align) for n in (h, w))
+    ys, xs = tiling.planAxis(h, tile, pad), tiling.planAxis(w, tile, pad)
+    oth, otw = int(round(min(tile, ph) * sc)), int(round(min(tile, pw) * sc))
+    places = [((int(round(y * sc)), int(round(xc * sc))), (iy == 0, iy == len(ys) - 1, ix == 0, ix == len(xs) - 1))
+              for iy, y in enumerate(ys) for ix, xc in enumerate(xs)]
+    g = torch.Generator().manual_seed(seed)
+    chunks = []
+    for start in range(0, len(places), spec.batch):
+        part = places[start : start + spec.batch]
+        if layout == "split":
+            tiles = torch.rand((spec.batch, outC, oth, otw), generator=g).to(dtype).permute(0, 2, 3, 1)
+        else:
+            tiles = torch.rand((spec.batch, oth, otw, outC), generator=g).to(dtype)
+        chunks.append((tiles, [o for o, _ in part], [e for _, e in part]))
+    return (int(round(ph * sc)), int(round(pw * sc)), outC), int(round(pad * sc)), chunks
+
+
+# (h, w, TileSpec, channels, tile dtype, layout): one-tile and many-tile
+# axes, padded last chunks, scales 1, 2 and 4, padSc 0 and > 0
+BLEND_PLANS = {
+    "one_tile_x1_f32": (20, 24, tiling.TileSpec(32, 5, 8, 1.0, 3), 3, torch.float32, "nhwc"),
+    "grid_x4_bf16_split": (70, 50, tiling.TileSpec(32, 5, 8, 4.0, 4), 3, torch.bfloat16, "split"),
+    "grid_x2_f32_split": (70, 50, tiling.TileSpec(32, 4, 8, 2.0, 4), 3, torch.float32, "split"),
+    "grid_x1_pad0_bf16": (70, 50, tiling.TileSpec(32, 0, 8, 1.0, 4), 3, torch.bfloat16, "nhwc"),
+    "row_x4_bf16_split": (20, 90, tiling.TileSpec(32, 5, 8, 4.0, 2), 3, torch.bfloat16, "split"),
+    "grid_x1_wide_halo_f32": (300, 180, tiling.TileSpec(128, 16, 16, 1.0, 3), 4, torch.float32, "nhwc"),
+    "one_chunk_x4_bf16_split": (60, 60, tiling.TileSpec(32, 5, 8, 4.0, 10), 1, torch.bfloat16, "split"),
+}
+
+
+def _blendPlainMatchesKernel(name):
+    h, w, spec, outC, dtype, layout = BLEND_PLANS[name]
+    shape, padSc, chunks = _blendPlan(h, w, spec, outC, dtype, layout, seed=len(name))
+    got = (torch.zeros(shape), torch.zeros(shape[:2] + (1,)))
+    want = (torch.zeros(shape), torch.zeros(shape[:2] + (1,)))
+    for tiles, origins, edges in chunks:
+        blend.blendTiles(*got, tiles, origins, edges, padSc)  # the CPU takes blendTilesPlain
+        _kernelBlend(*want, tiles, origins, edges, padSc)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    sc = spec.scale
+    assert bool((want[1][: int(h * sc), : int(w * sc)] > 0).all())  # every output pixel was blended
+
+
+def _windowRuleMatchesBlendWindow():
+    """The kernel's per-pixel rule (``_kernelAxis``) against the engine's
+    window (``axisWindow``'s slice assignments, held against JAX by
+    test_plan_and_windows_match_jax), value for value, and their product
+    against ``blendWindow``."""
+    for t, padSc in ((32, 0), (32, 1), (32, 5), (40, 20), (128, 16), (1024, 20), (25, 16), (9, 5)):
+        for edges in ((False,) * 4, (True, False, False, True), (False, True, True, False), (True,) * 4):
+            wy = _kernelAxis(t, padSc, edges[0], edges[1])
+            wx = _kernelAxis(t + 8, padSc, edges[2], edges[3])
+            assert torch.equal(wy, blend.axisWindow(t, padSc, edges[0], edges[1]))
+            assert torch.equal(wx, blend.axisWindow(t + 8, padSc, edges[2], edges[3]))
+            assert torch.equal(wy[:, None] * wx[None, :], tiling.blendWindow(t, t + 8, padSc, edges))
+
+
+def _rampUploadedOnce(monkeypatch):
+    """``rampOn`` copies a padSc's table to a device once and keeps it:
+    ``moe.count.blend_uploads=1`` on the first call, nothing on the
+    second; a ``tiledApply`` on the CPU makes no table and records no
+    upload (its windows are ``blendWindow``'s, on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(blend, "_tables", {})
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        first = blend.rampOn(6, "cpu")
+        again = blend.rampOn(6, "cpu")
+    uploads = [e.name for e in prof.events() if e.name.startswith("moe.count.blend_")]
+    assert uploads == ["moe.count.blend_uploads=1"] and again is first
+    assert torch.equal(first, blend.ramp(6)) and list(blend._tables) == [(6, torch.device("cpu"))]
+
+    monkeypatch.setattr(blend, "_tables", {})
+    up = lambda t: t.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tiling.tiledApply(torch.rand(40, 36, 3), up, tiling.TileSpec(16, 3, 4, 2.0, 4))
+    assert not [e.name for e in prof.events() if e.name.startswith("moe.count.blend_")] and not blend._tables
+
+
+@pytest.mark.parametrize("case", [*BLEND_PLANS, "window_rule", "ramp_cache"])
+def test_chunk_blend(case, monkeypatch):
+    """The chunk blend on the CPU: ``blendTilesPlain`` (through
+    ``blendTiles``) bit-equal to the kernel's pass written in torch ops on
+    each plan of BLEND_PLANS, chunk after chunk; the kernel's window rule
+    against the engine's window; the ramp table copied once per padSc and
+    device."""
+    if case == "window_rule":
+        _windowRuleMatchesBlendWindow()
+    elif case == "ramp_cache":
+        _rampUploadedOnce(monkeypatch)
+    else:
+        _blendPlainMatchesKernel(case)
