@@ -9,6 +9,14 @@ stack.  Widths (Chen et al., ECCV 2022): a block at c has ``conv1`` c -> 2c,
 a depthwise 3x3 ``conv2``, ``conv3`` c -> c, ``sca.1`` c -> c, ``conv4``
 c -> 2c, ``conv5`` c -> c, all with bias; ``up.0`` 2c -> 4c without bias.
 H and W must be multiples of 2^L (the registry's tiles align to 16).
+
+The forward pass has three stages (``NAFNet.stages``): the encoder
+(``intro``, the encoder blocks and the downs), the middle blocks, and the
+decoder (the ups, the skips, the decoder blocks and ``ending``).  Each
+model call (a chunk of tiles) records one profiler span a stage while one
+records (``progress.span``): ``moe.nafnet.encoder``, ``moe.nafnet.middle``
+and ``moe.nafnet.decoder``.  ``engine/executor.ModelExec`` replays the
+stages as CUDA graphs for a full chunk on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 from torch import nn
 
 from moephoto_tpu_torch.models.api import LayerNorm2d, globalAvgPool
+from moephoto_tpu_torch.progress import span
 
 
 class NAFBlock(nn.Module):
@@ -78,17 +87,38 @@ class NAFNet(nn.Module):
         layers.append(nn.Sequential(*[NAFBlock(width << L) for _ in range(middleBlkNum)]))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+    def stages(self):
+        """The forward pass as (span name, function) pairs, each function
+        taking the result of the one before: the (B, H, W, 3) input, then
+        (features, skips, the NCHW input) twice, then the output."""
+        return (("moe.nafnet.encoder", self._encode), ("moe.nafnet.middle", self._middle),
+                ("moe.nafnet.decoder", self._decode))
+
+    def _encode(self, inp: torch.Tensor):
         x = inp.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         f, skips = self.intro(x), []
         for layer in self.layers[:-1]:
             f = layer.encoder(f)
             skips.append(f)
             f = layer.down(f)
-        f = self.layers[-1](f)
+        return f, skips, x
+
+    def _middle(self, state):
+        f, skips, x = state
+        return self.layers[-1](f), skips, x
+
+    def _decode(self, state) -> torch.Tensor:
+        f, skips, x = state
         for layer, skip in zip(reversed(self.layers[:-1]), reversed(skips)):
             f = layer.decoder(layer.up(f) + skip)
         return (self.ending(f) + x).permute(0, 2, 3, 1)
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        state = inp
+        for name, fn in self.stages():
+            with span(name):
+                state = fn(state)
+        return state
 
 
 # registry configurations (JAX nafnet.py:88-91)

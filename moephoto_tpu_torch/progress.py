@@ -25,6 +25,8 @@ the profiler's flag.  Their names:
 - ``moe.stream.run``: one scheduling pass of ``engine/stream.StreamGraph``;
 - ``moe.vsr.edvr``, ``.spynet``, ``.scan``, ``.up``: IconVSR's parts
   (``models/iconvsr.py``);
+- ``moe.nafnet.encoder``, ``.middle``, ``.decoder``: NAFNet's three
+  stages, once each a model call (``models/nafnet.py``);
 - ``moe.count.<name>=<n>``: a zero-length range that records the count
   ``n`` (``tiles_needed`` and ``tiles_run``, once a chunk of tiles;
   ``vsr_keyframes`` and ``vsr_frames``, once a backward chunk of VSR;
