@@ -43,8 +43,17 @@ Phases, each printing one JSON line:
               profiled images after the ramp cache is emptied; a warm
               image under set_sync_debug_mode("error") raises nothing,
               the plain loop's window copies raise
+     layernorm NAFNet's channels-last LayerNorm (K8, ops/layernorm.py)
+              against its plain versions on the card, both modes (the
+              norm; the scaled residual z bit-equal, then its norm),
+              fp32 and bf16, C = 32 to 1024, ragged row counts, within one
+              bf16 ulp (fp32 1e-5); its time at the NAFNet cell's five
+              level shapes (a chunk of four 256x256 tiles) in both modes,
+              each call after an L2 flush, beside its byte bound and the
+              plain version's time, and F.layer_norm's beside mode (a) (the
+              library yardstick)
      parity   the kernel parity gate (tools/chipparity.py runAll and
-              assertAll): all five kernels against their plain versions on
+              assertAll): five kernels against their plain versions on
               the JAX gate's six cases, each launched once
   4. main     runs the CLI's image SR path (MoeNet_lite2 x4, bf16) on a
               seeded 1920x1080 PNG with seeded random weights, checks the
@@ -123,14 +132,18 @@ Phases, each printing one JSON line:
  11. zoo      runs BASELINE config 3 through the CLI's image path (DN
               MPRNet_denoising -> DN NAFNet_32, bf16, full width) on a seeded
               1920x1080 PNG, checks the output and that no hand-written kernel
-              but the engine's K7 launched, and holds a 128x128 crop of each
+              but the engine's K7 and NAFNet's K8 launched (K8 at least
+              once), counts 864 K8 kernels and no ATen layer norm in a
+              trace of one 1080p image through the CLI's own NAFNet_32 exec
+              (its stage graphs replayed), and holds a 128x128 crop of each
               model in fp32 on the card against the CPU; then every other
               model of the zoo once through its registry entry's ModelExec
               on the card in bf16 (NAFNet_64, the three NAFNet deblur
               entries, MPRNet deblurring and deraining and moire_obj on
               1280x720; gan2, gan4, gana4 and VSR_Cleaning on 640x360;
               moire_screen_gan on 1920x1080), each output finite and of its
-              size, with its fp32 crop against the CPU; then times NAFNet-32, MPRNet deblurring, the config-3
+              size, K8 launched by the NAFNet entries and by no other,
+              with its fp32 crop against the CPU; then times NAFNet-32, MPRNet deblurring, the config-3
               chain, moire_obj and moire_screen_gan at 1080p and gan4 at
               640x360 on a device-resident image (input Mpx/s by CUDA events,
               multiply-accumulates an image counted on the meta device, one
@@ -208,7 +221,7 @@ Phases, each printing one JSON line:
               loaded in a fresh process through loadExported and held
               bit-equal to the eager module on a seeded input, K1 and K4
               launched there; the packager with --models lite4 into the work
-              directory (five prebuilt kernel libraries under build/), the
+              directory (six prebuilt kernel libraries under build/), the
               tree's cli image lite x4 on the main phase's PNG from its root
               with nvcc off PATH and CUDA_HOME missing, 0 LSB from the main
               phase and no new build file; calibrate lite4 at 1080p over
@@ -554,23 +567,26 @@ def resetCounts():
     from moephoto_tpu_torch.ops import deform
     from moephoto_tpu_torch.ops.blend import blendTiles
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
+    from moephoto_tpu_torch.ops.layernorm import layerNorm
     from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformClamped
     from moephoto_tpu_torch.ops.warp import warp
 
     fusedUpHeads.launches = ailutTransform.launches = warp.launches = deform.deformConv2d.launches = 0
-    ailutTransformClamped.launches = blendTiles.launches = 0
+    ailutTransformClamped.launches = blendTiles.launches = layerNorm.launches = 0
 
 
 def readCounts():
     from moephoto_tpu_torch.ops import deform
     from moephoto_tpu_torch.ops.blend import blendTiles
     from moephoto_tpu_torch.ops.fusedup import fusedUpHeads
+    from moephoto_tpu_torch.ops.layernorm import layerNorm
     from moephoto_tpu_torch.ops.lut import ailutTransform, ailutTransformClamped
     from moephoto_tpu_torch.ops.warp import warp
 
     return {"fusedUpHeads": fusedUpHeads.launches, "ailutTransform": ailutTransform.launches,
             "warp": warp.launches, "deformConv2d": deform.deformConv2d.launches,
-            "ailutTransformClamped": ailutTransformClamped.launches, "blendTiles": blendTiles.launches}
+            "ailutTransformClamped": ailutTransformClamped.launches, "blendTiles": blendTiles.launches,
+            "layerNorm": layerNorm.launches}
 
 
 def lutBound(img, lut, vertices):
@@ -1363,6 +1379,128 @@ def checkBlend(seed, gpu):
     return dict(k7, max_abs_err=maxErr)
 
 
+# K8 against its plain versions: fp32 within 1e-5 * max(1, |plain|); bf16 within one bf16 ulp of
+# max(|plain|, 2^-8) (tests/test_torch_layernorm.py: the two sum in another order, and an output that
+# cancels below 2^-8 carries a few fp32 ulps of its terms); mode (b)'s z bit-equal
+LN_EPS, LN_ULP_FLOOR = 1e-5, 2.0**-8
+LN_WIDTHS = (32, 64, 128, 256, 512, 1024)
+# NAFNet-SIDD-32's norms in the cell: a chunk of four 256x256 tiles at each level, (name, C, side, norms a
+# chunk): 2 a block, encoder + decoder blocks (2 + 2, 2 + 2, 4 + 2, 8 + 2) and the 12 middle blocks
+LN_LEVELS = (("level0", 32, 256, 8), ("level1", 64, 128, 8), ("level2", 128, 64, 12), ("level3", 256, 32, 20),
+             ("middle", 512, 16, 24))
+NAF_CHUNKS = 12  # a 1080p image in NAFNet_32's tiles: 48 tiles in chunks of 4
+
+
+def isK8(name: str) -> bool:
+    return "nhwcLayerNorm" in name
+
+
+def isAtenNorm(name: str) -> bool:  # PyTorch's layer-norm forward kernels (benchmark/metrics/norm_ms.dn.py less K8)
+    return ("layer_norm" in name or "LayerNorm" in name or "RowwiseMoments" in name) and not isK8(name)
+
+
+def lnCase(seed, shape, dtype):
+    """NCHW views of channels-last x (around 3) and y, and the four per-channel parameters."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, c, h, w = shape
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+    x = (3 + rnd(n, h, w, c)).to(dtype).permute(0, 3, 1, 2)
+    y = rnd(n, h, w, c).to(dtype).permute(0, 3, 1, 2)
+    return x, y, (0.2 * rnd(c)).to(dtype), (0.5 * rnd(1, c, 1, 1)).to(dtype), (1 + 0.3 * rnd(c)).to(dtype), \
+        (0.3 * rnd(c)).to(dtype)
+
+
+def lnErr(got, want):
+    """(largest |got - want| over its tolerance, largest |got - want|)."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        tol = 1e-5 * want.float().abs().clamp_min(1.0)
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(LN_ULP_FLOOR))) - 7)
+    return float((err / tol).max()), float(err.max())
+
+
+def flushedMs(fn, iters=ITERS):
+    """Median device ms of one call of ``fn``, each of ``iters`` calls timed
+    by a pair of CUDA events after L2_FLUSH_BYTES written to scratch (its
+    inputs come from HBM) and a ~1 ms device sleep, which gives the host the
+    lead to enqueue the whole call before the device reaches it: the events
+    time the device's work, not the wrapper's host path."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        scratch.zero_()
+        torch.cuda._sleep(2_000_000)  # clock cycles: ~1 ms at the H100's 1.98 GHz
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return spread(times)["median"]
+
+
+def checkLayerNorm(seed, gpu):
+    """K8 (``ops/layernorm.py``) on the card: both modes against the plain
+    versions at C = 32-1024 on ragged row counts, fp32 and bf16, ``z``
+    bit-equal; then at the NAFNet cell's five level shapes in bf16, each
+    call after an L2 flush (flushedMs): K8 in both modes beside its byte
+    bound (mode (a) reads and writes the tensor once, (b) reads two and
+    writes two), the plain versions, and F.layer_norm (the library
+    yardstick for mode (a), which moves its bytes; the port never calls
+    it).  Returns K8's row for the kernels line: mode (a) at level 0 beside
+    its plain version, bound and F.layer_norm, mode (b) in fields of its
+    own."""
+    import torch.nn.functional as F
+
+    from moephoto_tpu_torch.ops import layernorm as LN
+
+    checks, maxErr = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, c in enumerate(LN_WIDTHS):
+            worst = 0.0
+            for shape in ((2, c, 7, 13), (1, c, 129, 67), (3, c, 33, 5)):
+                x, y, yb, beta, w, b = lnCase(seed + i, shape, dtype)
+                before = LN.layerNorm.launches
+                n = LN.layerNorm(x, w, b, LN_EPS)
+                z, n2 = LN.residualLayerNorm(x, y, yb, beta, w, b, LN_EPS)
+                torch.cuda.synchronize()
+                launches = LN.layerNorm.launches - before
+                zp, n2p = LN.residualLayerNormPlain(x, y, yb, beta, w, b, LN_EPS)
+                errs = [lnErr(n, LN.layerNormPlain(x, w, b, LN_EPS)), lnErr(n2, n2p)]
+                if not (torch.equal(z, zp) and all(r <= 1.0 for r, _ in errs) and launches == 2):
+                    raise AssertionError(f"K8 at {shape} {dtype}: z equal {torch.equal(z, zp)}, (error / tolerance, "
+                                         f"error) {errs}, {launches} launches")
+                worst = max([worst] + [r for r, _ in errs])
+                maxErr = max([maxErr] + [e for _, e in errs])
+            checks[f"{c}_{str(dtype)[6:]}"] = worst
+
+    levels = {}
+    for name, c, side, count in LN_LEVELS:
+        x, y, yb, beta, w, b = lnCase(seed, (4, c, side, side), torch.bfloat16)
+        nbytes = x.numel() * x.element_size()
+        boundA, boundB = 2 * nbytes / PEAK_BYTES * 1e3, 4 * nbytes / PEAK_BYTES * 1e3
+        msA = flushedMs(lambda: LN.layerNorm(x, w, b, LN_EPS))
+        msB = flushedMs(lambda: LN.residualLayerNorm(x, y, yb, beta, w, b, LN_EPS))
+        levels[name] = dict(
+            shape=[4, side, side, c], norms_a_chunk=count, tensor_bytes=nbytes,
+            a=dict(ms=msA, bound_ms=boundA, share_of_bound=boundA / msA,
+                   plain_ms=flushedMs(lambda: LN.layerNormPlain(x, w, b, LN_EPS)),
+                   library_ms=flushedMs(lambda: F.layer_norm(x.permute(0, 2, 3, 1), (c,), w, b, LN_EPS))),
+            b=dict(ms=msB, bound_ms=boundB, share_of_bound=boundB / msB,
+                   plain_ms=flushedMs(lambda: LN.residualLayerNormPlain(x, y, yb, beta, w, b, LN_EPS))))
+    # half of a level's norms are each block's first (mode (a)), half its second (mode (b))
+    estimate = NAF_CHUNKS * sum(v["norms_a_chunk"] / 2 * (v["a"]["ms"] + v["b"]["ms"]) for v in levels.values())
+    libEstimate = NAF_CHUNKS * sum(v["norms_a_chunk"] * v["a"]["library_ms"] for v in levels.values())
+    emit(phase="layernorm", gpu=gpu, tolerance=f"fp32 1e-5*max(1,|plain|); bf16 one ulp of max(|plain|, {LN_ULP_FLOOR})",
+         error_over_tolerance=checks, max_abs_err=maxErr, timing="each call after an L2 flush, CUDA events",
+         levels=levels, image_norm_ms_estimate=estimate, image_library_norm_ms_estimate=libEstimate)
+    a, b = levels["level0"]["a"], levels["level0"]["b"]
+    return dict(ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], library_ms=a["library_ms"],
+                ms_b=b["ms"], plain_ms_b=b["plain_ms"], bound_ms_b=b["bound_ms"], max_abs_err=maxErr)
+
+
 def checkInputPath(seed, gpu):
     """The input path on the card (``pipeline/steps.toDevice``: the
     integers uploaded, widened there) against the host conversion it
@@ -1922,8 +2060,17 @@ def layerMacs(model, fn):
             total[name] = total.get(name, 0) + n
         return count
 
+    from moephoto_tpu_torch.models.nafnet import NAFBlock
+
+    def conv3(name):  # NAFBlock runs conv3 through F.conv2d (its bias goes to K8): c x c MACs an output value
+        def count(m, inp, out):
+            total[name] = total.get(name, 0) + out.numel() * m.conv3.weight[0].numel()
+        return count
+
     handles = [m.register_forward_hook(hook(".".join(k.split(".")[:2]))) for k, m in model.named_modules()
                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
+    handles += [m.register_forward_hook(conv3(".".join(k.split(".")[:2]))) for k, m in model.named_modules()
+                if isinstance(m, NAFBlock)]
     try:
         fn()
     finally:
@@ -2028,7 +2175,7 @@ def runParity():
     launches = readCounts()
     chipparity.assertAll(results)
     want = {"fusedUpHeads": 1, "ailutTransform": 1, "warp": 2, "deformConv2d": 1, "ailutTransformClamped": 1,
-            "blendTiles": 0}
+            "blendTiles": 0, "layerNorm": 0}
     if launches != want or len(results) != 6:
         raise AssertionError(f"parity gate launched {launches}, want {want}; keys {list(results)}")
     emit(phase="parity", max_abs_err=results, tolerances=chipparity.TOLERANCES, launches=launches, seconds=seconds)
@@ -2228,7 +2375,10 @@ def holdZooCrop(name, step, sd, img, side):
 def runConfig3(seed, work, draws):
     """BASELINE config 3 through ``cli image`` on the card in bf16: DN
     MPRNet_denoising -> DN NAFNet_32 on a seeded 1920x1080 PNG; the output
-    and no kernel launch checked; each model's fp32 crop against the CPU."""
+    and its launches checked (K7 and NAFNet's K8 only); K8's kernels in a
+    trace of one 1080p image through the CLI's own NAFNet exec (864 wanted,
+    no ATen layer-norm kernel); each model's fp32 crop against the CPU.
+    Returns the K8 kernels traced."""
     from PIL import Image
 
     from moephoto_tpu_torch import cli
@@ -2246,15 +2396,33 @@ def runConfig3(seed, work, draws):
         arr = np.asarray(out)
     if got != (W, H) or mode != "RGB" or not arr.std() > 0:
         raise AssertionError(f"config3: output {got} {mode} std {arr.std()}, want {(W, H)} RGB")
-    if sum(v for k, v in launches.items() if k != "blendTiles"):  # K7 blends the engine's tiles, of any model
-        raise AssertionError(f"config3 launched {launches}: no hand-written kernel is in its models")
+    # K7 blends the engine's tiles, of any model; K8 is NAFNet's LayerNorm
+    if sum(v for k, v in launches.items() if k not in ("blendTiles", "layerNorm")) or not launches["layerNorm"]:
+        raise AssertionError(f"config3 launched {launches}: K8 in NAFNet and no other hand-written kernel wanted")
+    # the wrapper's count sees captures and eager calls, not stage-graph replays: count K8 in a trace of the
+    # exec the CLI ran (the registry keeps it), on an image of the same size
+    ex, x = zooExec(CONFIG3[1]), torch.from_numpy(img).cuda().float() / 255.0
+    traced = []
+    for _ in range(3):  # the profiler can drop records: the window with the most
+        evs = [v for v in profiledCalls(lambda: ex(x), 1).events() if v.device_type == torch.autograd.DeviceType.CUDA]
+        traced.append((sum(1 for e in evs if isK8(e.name)), sum(1 for e in evs if isAtenNorm(e.name)),
+                       sum(e.time_range.elapsed_us() for e in evs if isK8(e.name)) / 1e3, len(evs)))
+        if traced[-1][0] == 864:
+            break
+    k8, aten, k8Ms, kernels = max(traced)
+    if k8 != 864 or aten:
+        raise AssertionError(f"a 1080p image through the CLI's NAFNet_32 exec traced {k8} K8 kernels (864 wanted) "
+                             f"and {aten} ATen layer-norm kernels (none wanted): {traced}")
     crops = {}
     for name in ("MPRNet_denoising", "NAFNet_32"):
         step, _, _, side = zooModels()[name]
         crops[name] = holdZooCrop(name, step, draws[name], img, side)
     emit(phase="config3", steps=CONFIG3, input=[H, W, 3], output=list(arr.shape), seconds=seconds, launches=launches,
-         kernels="none in its models: cuDNN convs, torch norms and elementwise passes; K7 blends the tiles",
+         kernels="K8 (NAFNet's LayerNorm); cuDNN convs, MPRNet's norms, elementwise passes; K7 blends the tiles",
+         nafnet_image_trace={"k8_kernels": k8, "k8_ms": k8Ms, "aten_norm_kernels": aten, "kernels": kernels,
+                             "windows": traced},
          output_mean=float(arr.mean()), output_std=float(arr.std()), crop_tol=f"{ZOO_TOL}*max(1,|cpu|)", crops=crops)
+    return k8
 
 
 def writeDraw(work, step, draw, seed):
@@ -2269,8 +2437,9 @@ def writeDraw(work, step, draw, seed):
 def runZoo(seed, work):
     """Every other model of the zoo once through its registry entry's
     ModelExec on the card in bf16 (as ``cli image`` calls it): the output
-    finite and of the expected size, no kernel launch; each model's fp32
-    crop against the CPU."""
+    finite and of the expected size, K8 launched by NAFNet's entries and
+    no other hand-written kernel but K7; each model's fp32 crop against the
+    CPU."""
     from moephoto_tpu_torch.config import config
 
     report = {}
@@ -2292,13 +2461,15 @@ def runZoo(seed, work):
         if tuple(y.shape) != (h * sc, w * sc, 3) or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"{name}: output {tuple(y.shape)} finite {bool(torch.isfinite(y).all())}, "
                                  f"want {(h * sc, w * sc, 3)}")
-        if sum(v for k, v in launches.items() if k != "blendTiles"):  # K7 blends the engine's tiles, of any model
-            raise AssertionError(f"{name} launched {launches}: no hand-written kernel is in its models")
+        others = sum(v for k, v in launches.items() if k not in ("blendTiles", "layerNorm"))  # K7: any model's
+        if others or bool(launches["layerNorm"]) != name.startswith("NAFNet"):
+            raise AssertionError(f"{name} launched {launches}: K8 in NAFNet's entries alone, no other wanted")
         report[name] = {"step": step, "input": [h, w, 3], "output": list(y.shape), "first_call_seconds": seconds,
                         "dtype": str(config.dtype()), "output_mean": float(y.mean()), "output_std": float(y.std()),
                         "crop": holdZooCrop(name, step, sd, img, side)}
         del sd, y
-    emit(phase="zoo", launches="none in these models; K7 blends the tiles", crop_tol=f"{ZOO_TOL}*max(1,|cpu|)",
+    emit(phase="zoo", launches="K8 in NAFNet's entries, none in the others; K7 blends the tiles",
+         crop_tol=f"{ZOO_TOL}*max(1,|cpu|)",
          models=report)
 
 
@@ -2321,7 +2492,8 @@ def tileMacs(ctor, tile):
         x = torch.empty(1, tile, tile, 3)
     demoire.attend = attend
     try:
-        byLayer = layerMacs(model, lambda: model(x))
+        with torch.no_grad():  # a count records no graph (K8 refuses one)
+            byLayer = layerMacs(model, lambda: model(x))
     finally:
         demoire.attend = plain
     return {**byLayer, **counted}
@@ -3978,7 +4150,7 @@ def main(argv=None) -> int:
     from moephoto_tpu_torch.config import config
     from moephoto_tpu_torch.models.estrnn import modelPaths as estrnnPaths
     from moephoto_tpu_torch.models.iconvsr import modelPath_ as vsrPath
-    from moephoto_tpu_torch.ops import _build, blend, deform, fusedup, lut, warp
+    from moephoto_tpu_torch.ops import _build, blend, deform, fusedup, layernorm, lut, warp
     from moephoto_tpu_torch.engine.tiling import planAxis
     from moephoto_tpu_torch.pipeline.registry import SR_REGISTRY
     from moephoto_tpu_torch.synth import (synthAiLUTParams, synthAODParams, synthIconVSRParams, synthIFRNetParams,
@@ -3995,7 +4167,7 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    sources = (fusedup.SOURCE, lut.SOURCE, warp.SOURCE, deform.SOURCE, blend.SOURCE)
+    sources = (fusedup.SOURCE, lut.SOURCE, warp.SOURCE, deform.SOURCE, blend.SOURCE, layernorm.SOURCE)
     _build.loadAll(sources)
     emit(phase="build", seconds=time.perf_counter() - t0, libraries={src: {
         "nvcc_seconds": _build.buildInfo[src]["seconds"],
@@ -4016,6 +4188,7 @@ def main(argv=None) -> int:
     clampErr = checkLutClamped(args.seed)
     clampLaunches, clampGateErr = runParity()
     bt = checkBlend(args.seed, smi)
+    lnt = checkLayerNorm(args.seed, smi)
     mark("kernels+parity")
 
     def liteLaunches(w, h, scale):  # fusedUpHeads launches of one lite image: its tile chunks
@@ -4075,7 +4248,7 @@ def main(argv=None) -> int:
         zoo = [(name, step, draw) for name, (step, draw, _, _) in zooModels().items()]
         draws = {name: writeDraw(work, step, draw, args.seed + 30 + i) for i, (name, step, draw) in enumerate(zoo)
                  if name in ("MPRNet_denoising", "NAFNet_32")}
-        runConfig3(args.seed + 11, work, draws)
+        k8Traced = runConfig3(args.seed + 11, work, draws)
         del draws
         runZoo(args.seed, work)
         timingZoo(args.seed, smi)
@@ -4139,6 +4312,12 @@ def main(argv=None) -> int:
         "replaces": None, "launches": mainCounts["blendTiles"], "launches_check": bt["launches"],
         "max_abs_err": bt["max_abs_err"], "ms": bt["ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"], "library_ms": None,
+    }, {  # replaces no TPU kernel: JAX's layerNorm2d is jnp; launches in a traced 1080p image through the CLI's
+        # NAFNet_32 exec; ms after an L2 flush at the NAFNet cell's level 0, mode (a) (mode (b) in the _b fields)
+        "name": "nhwcLayerNorm", "route": "cuda", "source": "moephoto_tpu_torch/csrc/layernorm.cu",
+        "replaces": None, "launches": k8Traced, "max_abs_err": lnt["max_abs_err"], "ms": lnt["ms"],
+        "plain_ms": lnt["plain_ms"], "bound_ms": lnt["bound_ms"], "bound_by": "bytes", "library_ms": lnt["library_ms"],
+        "ms_b": lnt["ms_b"], "plain_ms_b": lnt["plain_ms_b"], "bound_ms_b": lnt["bound_ms_b"],
     }, {  # launched by the parity gate only; timed at the gate's shape, and at 1080p beside it
         "name": "ailutTransformClamped", "route": "cuda", "source": "moephoto_tpu_torch/csrc/ailut.cu",
         "replaces": "moephoto_tpu/ops/lutkernel.py:322", "launches": clampLaunches,

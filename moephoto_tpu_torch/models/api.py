@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from moephoto_tpu_torch.ops.layernorm import layerNorm, layerNormPlain
+
 StateDict = Dict[str, torch.Tensor]
 # (key, torch shape) -> bool: selects the ConvTranspose2d weights
 ConvTPredicate = Optional[Callable[[str, Tuple[int, ...]], bool]]
@@ -157,21 +159,22 @@ def onNHWC(fn: Callable, x: torch.Tensor, *args) -> torch.Tensor:
 class LayerNorm2d(torch.nn.Module):
     """LayerNorm over the channels of NCHW (reference ``LayerNorm2d``, JAX
     ``layerNorm2d``): biased variance, eps 1e-5, normalised and scaled in
-    fp32 whatever the input's dtype, rounded once.  Keys ``weight``,
-    ``bias``."""
+    fp32 whatever the input's dtype, rounded once (``ops/layernorm.py``
+    ``layerNorm``: K8 on the card, its plain version on the CPU), on the
+    input's channels-last layout.  ``fused = False`` runs the plain version
+    on any device (K8 has no backward: training runs that).  Keys
+    ``weight``, ``bias``."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
+        self.fused = True
         self.weight = torch.nn.Parameter(torch.ones(c))
         self.bias = torch.nn.Parameter(torch.zeros(c))
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # one pass over the channels-last view; F.layer_norm keeps its sums
-        # and the affine step in fp32 for a bf16 input
-        y = F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],), self.weight.to(x.dtype), self.bias.to(x.dtype),
-                         self.eps)
-        return y.permute(0, 3, 1, 2)
+        norm = layerNorm if self.fused else layerNormPlain
+        return norm(x.contiguous(memory_format=torch.channels_last), self.weight, self.bias, self.eps)
 
 
 class ScaleLayer(torch.nn.Module):

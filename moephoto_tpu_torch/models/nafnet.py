@@ -25,16 +25,22 @@ import functools
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from moephoto_tpu_torch.models.api import LayerNorm2d, globalAvgPool
+from moephoto_tpu_torch.ops.layernorm import residualLayerNorm, residualLayerNormPlain
 from moephoto_tpu_torch.progress import span
 
 
 class NAFBlock(nn.Module):
     """LN -> 1x1 -> depthwise 3x3 -> SimpleGate -> SCA -> 1x1, added through
     ``beta``; then LN -> 1x1 -> SimpleGate -> 1x1, added through ``gamma``
-    (JAX ``_nafBlock``).  Runs on NCHW."""
+    (JAX ``_nafBlock``).  Runs on NCHW views of channels-last memory.
+    ``conv3``'s bias, the product with ``beta``, the sum with the input and
+    the second norm are one ``ops/layernorm.residualLayerNorm`` call (K8 on
+    the card): ``z`` formed in fp32 and rounded once.  ``fused = False``
+    runs its plain version, which autograd differentiates."""
 
     def __init__(self, c: int, dwExpand: int = 2, ffnExpand: int = 2):
         super().__init__()
@@ -49,13 +55,18 @@ class NAFBlock(nn.Module):
         self.norm2 = LayerNorm2d(c)
         self.beta = nn.Parameter(torch.zeros(1, c, 1, 1))
         self.gamma = nn.Parameter(torch.zeros(1, c, 1, 1))
+        self.fused = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous(memory_format=torch.channels_last)
         y1, y2 = self.conv2(self.conv1(self.norm1(x))).chunk(2, 1)
         y = y1 * y2  # SimpleGate
-        y = self.conv3(y * self.sca[1](globalAvgPool(y)))
-        z = x + y * self.beta.to(x.dtype)
-        y1, y2 = self.conv4(self.norm2(z)).chunk(2, 1)
+        # conv3 without its bias: K8 adds it, scales by beta, adds x and norms the sum in one pass
+        y = F.conv2d(y * self.sca[1](globalAvgPool(y)), self.conv3.weight)
+        fuse = residualLayerNorm if self.fused else residualLayerNormPlain
+        z, n = fuse(x, y.contiguous(memory_format=torch.channels_last), self.conv3.bias, self.beta,
+                    self.norm2.weight, self.norm2.bias, self.norm2.eps)
+        y1, y2 = self.conv4(n).chunk(2, 1)
         return z + self.conv5(y1 * y2) * self.gamma.to(x.dtype)
 
 
@@ -75,7 +86,10 @@ class UNetLayer(nn.Module):
 class NAFNet(nn.Module):
     """(B, H, W, 3) -> (B, H, W, 3): ``intro`` 3 -> width, the U-Net,
     ``ending`` width -> 3, plus the input.  ``decBlkNums`` lists the decoder
-    counts from the deepest level out, as the reference's ``dec_blk_nums``."""
+    counts from the deepest level out, as the reference's ``dec_blk_nums``.
+    ``fused`` (True) runs the norms through K8 on the card; set it False to
+    train (``tools/train.buildModel`` does): every block and norm then runs
+    its plain version, which has a backward."""
 
     def __init__(self, width: int = 16, middleBlkNum: int = 1, encBlkNums: Sequence[int] = (),
                  decBlkNums: Sequence[int] = ()):
@@ -86,6 +100,16 @@ class NAFNet(nn.Module):
         layers = [UNetLayer(width << i, encBlkNums[i], decBlkNums[L - 1 - i]) for i in range(L)]
         layers.append(nn.Sequential(*[NAFBlock(width << L) for _ in range(middleBlkNum)]))
         self.layers = nn.ModuleList(layers)
+
+    @property
+    def fused(self) -> bool:
+        return all(m.fused for m in self.modules() if isinstance(m, (NAFBlock, LayerNorm2d)))
+
+    @fused.setter
+    def fused(self, on: bool) -> None:
+        for m in self.modules():
+            if isinstance(m, (NAFBlock, LayerNorm2d)):
+                m.fused = on
 
     def stages(self):
         """The forward pass as (span name, function) pairs, each function

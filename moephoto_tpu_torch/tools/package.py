@@ -1,7 +1,7 @@
 """Deployment packager: the counterpart of the JAX package's
 ``tools/package.py`` (role of the reference's ``setup_run.py:34-58``:
 manifest generation, native build, deploy-tree assembly).  Where the JAX
-tree ships its frame codec built, this one ships the port's five CUDA
+tree ships its frame codec built, this one ships the port's six CUDA
 kernel libraries built for ``sm_90a``, so the tree runs with no ``nvcc``
 on the target; model exports are ``torch.export`` programs.
 
