@@ -2,10 +2,11 @@
 folding, plane packing, self-ensemble and strength blending.
 
 On the card a model that lists its forward pass as ``stages()`` (span
-name, function) pairs, as ``models/nafnet.NAFNet`` does, runs each full
-chunk (``batch`` tiles of ``tile`` x ``tile``, every chunk of an image at
-least a tile high and wide) as one CUDA graph a stage, captured on the
-first such chunk: NAFNet-SIDD-32 issues ~880 small kernels a chunk, which
+name, function) pairs, as ``models/nafnet.NAFNet`` and
+``models/mprnet.MPRNet`` do, runs each full chunk (``batch`` tiles of
+``tile`` x ``tile``, every chunk of an image at least a tile high and
+wide) as one CUDA graph a stage, captured on the first such chunk:
+NAFNet-SIDD-32 issues ~880 small kernels a chunk and MPRNet ~740, which
 Python issued more slowly than an H100 ran them.  A replay runs the same
 kernels in the same order.  The exec keeps one capture, and captures
 anew when the chunk's shape, the model's weights or the TF32 settings

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from moephoto_tpu_torch.ops.layernorm import layerNorm, layerNormPlain
+from moephoto_tpu_torch.progress import span
 
 StateDict = Dict[str, torch.Tensor]
 # (key, torch shape) -> bool: selects the ConvTranspose2d weights
@@ -37,6 +38,16 @@ def prelu(x: torch.Tensor, weight: torch.Tensor, dim: int = 1) -> torch.Tensor:
 def globalAvgPool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d(1) on NCHW, averaged in fp32 -> (B, C, 1, 1)."""
     return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+def runStages(stages, x):
+    """A forward pass listed as (span name, function) pairs (a model's
+    ``stages()``), each function taking the result of the one before, run
+    in order, each in its profiler span (``progress.span``)."""
+    for name, fn in stages:
+        with span(name):
+            x = fn(x)
+    return x
 
 
 def interleaveNested(x: torch.Tensor, n: int) -> torch.Tensor:

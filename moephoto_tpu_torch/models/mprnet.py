@@ -12,6 +12,15 @@ weights, so they run as one batch: four times (twice) the batch, a quarter
 Widths (Zamir et al., CVPR 2021): n features, the U-Net levels n, n + s,
 n + 2s, ORSNet at n + o; every conv without bias; a CAB is two 3x3 convs
 around one PReLU and a channel attention of reduction 4.
+
+The forward pass has three stages (``MPRNet.stages``), one a stage of the
+published model: the quadrants' encoder and the halves' decoder and SAM;
+the halves' encoder with the cross-stage fusion, their decoder joined
+along H and the second SAM; ORSNet, ``tail`` and the residual.  Each model
+call (a chunk of tiles) records one profiler span a stage while one
+records (``progress.span``): ``moe.mprnet.stage1``, ``moe.mprnet.stage2``
+and ``moe.mprnet.stage3``.  ``engine/executor.ModelExec`` replays the
+stages as CUDA graphs for a full chunk on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from moephoto_tpu_torch.models.api import interpolateScale, onNHWC, prelu
+from moephoto_tpu_torch.models.api import interpolateScale, onNHWC, prelu, runStages
 from moephoto_tpu_torch.models.blocks import FRM
 
 CA_REDUCTION = 4
@@ -173,25 +182,43 @@ class MPRNet(nn.Module):
         self.concat = nn.ModuleList([_conv(2 * n, n, 3), _conv(2 * n, n + o, 3)])
         self.tail = _conv(n + o, 3, 3)
 
-    def _stage(self, level: int, feat: List[torch.Tensor], xImg: torch.Tensor):
-        """Decode the joined features, SAM, and encode the next stage from
-        the shallow features of ``xImg`` beside the SAM's."""
-        res = self.decoder[level](feat)
-        xSam, _ = self.sam[level](res[0], xImg)
-        xCat = self.concat[level](torch.cat([self.shallow_feat[level + 1](xImg), xSam], 1))
-        return self.encoder[level + 1](xCat, feat, res)
+    def stages(self):
+        """The forward pass as (span name, function) pairs, each function
+        taking the result of the one before: the (B, H, W, 3) input, then
+        (the NCHW input, its halves, stage 1's joined encoder and decoder
+        features, the SAM's features), then (the NCHW input, stage 2's
+        encoder and decoder features, the SAM's features), then the output."""
+        return (("moe.mprnet.stage1", self._stage1), ("moe.mprnet.stage2", self._stage2),
+                ("moe.mprnet.stage3", self._stage3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x3 = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
+    def _stage1(self, inp: torch.Tensor):
+        x3 = inp.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         b, _, h, w = x3.shape
         if h % 8 or w % 8:
             raise ValueError(f"MPRNet needs H, W % 8 == 0, got {h}x{w}")
         top, bot = x3[:, :, : h // 2], x3[:, :, h // 2:]
         quads = torch.cat([top[..., : w // 2], top[..., w // 2:], bot[..., : w // 2], bot[..., w // 2:]])
-        feat1 = self.encoder[0](self.shallow_feat[0](quads))
-        feat2 = self._stage(0, [_pairUp(f, b, 3) for f in feat1], torch.cat([top, bot]))
-        x3cat = self._stage(1, [_pairUp(f, b, 2) for f in feat2], x3)
-        return (self.tail(x3cat) + x3).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        halves = torch.cat([top, bot])
+        enc = [_pairUp(f, b, 3) for f in self.encoder[0](self.shallow_feat[0](quads))]
+        dec = self.decoder[0](enc)
+        xSam, _ = self.sam[0](dec[0], halves)
+        return x3, halves, enc, dec, xSam
+
+    def _stage2(self, state):
+        x3, halves, enc, dec, xSam = state
+        xCat = self.concat[0](torch.cat([self.shallow_feat[1](halves), xSam], 1))
+        enc = [_pairUp(f, x3.shape[0], 2) for f in self.encoder[1](xCat, enc, dec)]
+        dec = self.decoder[1](enc)
+        xSam, _ = self.sam[1](dec[0], x3)
+        return x3, enc, dec, xSam
+
+    def _stage3(self, state) -> torch.Tensor:
+        x3, enc, dec, xSam = state
+        xCat = self.concat[1](torch.cat([self.shallow_feat[2](x3), xSam], 1))
+        return (self.tail(self.encoder[2](xCat, enc, dec)) + x3).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return runStages(self.stages(), x)
 
 
 # registry configurations (JAX mprnet.py:154-156)

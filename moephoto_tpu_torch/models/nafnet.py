@@ -28,9 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from moephoto_tpu_torch.models.api import LayerNorm2d, globalAvgPool
+from moephoto_tpu_torch.models.api import LayerNorm2d, globalAvgPool, runStages
 from moephoto_tpu_torch.ops.layernorm import residualLayerNorm, residualLayerNormPlain
-from moephoto_tpu_torch.progress import span
 
 
 class NAFBlock(nn.Module):
@@ -138,11 +137,7 @@ class NAFNet(nn.Module):
         return (self.ending(f) + x).permute(0, 2, 3, 1)
 
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
-        state = inp
-        for name, fn in self.stages():
-            with span(name):
-                state = fn(state)
-        return state
+        return runStages(self.stages(), inp)
 
 
 # registry configurations (JAX nafnet.py:88-91)
